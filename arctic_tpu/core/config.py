@@ -3,8 +3,9 @@
 Collects every compile-time constant of the reference into one hashable
 dataclass (SURVEY.md §5.6): window size (app.hpp:20-21), shadow-map size
 (shadow_map_pass.hpp:23), max point lights (renderer.hpp:22), plus the
-TPU-specific tiling knobs that have no reference analogue (the reference's
-16x16 compute groups, post_process_pass.hpp:39-40, are the closest thing).
+tiled rasterizer's tile shapes, which have no reference analogue (the
+reference's 16x16 compute groups, post_process_pass.hpp:39-40, are the
+closest thing).
 Changing any field implies recompilation — the analogue of rebuilding PSOs.
 """
 
@@ -26,40 +27,19 @@ class RenderConfig:
     # Shadow map (ShadowMapPass::SIZE = 4000, shadow_map_pass.hpp:23).
     shadow_size: int = 4000
 
-    # Tile shape for the shadow pass (results are tile-size invariant;
-    # bigger tiles amortize per-tile kernel overhead over the 4000^2
-    # target). shadow_tile is the WIDTH; shadow_tile_h overrides the
-    # height (None = square) — shorter tiles halve the per-pair VPU work
-    # at the cost of more (tile, tri) pairs.
-    shadow_tile: int = 64
+    # Tile shape for the shadow pass (results are tile-size invariant).
+    # shadow_tile is the WIDTH; shadow_tile_h overrides the height (None =
+    # square). 32 measured faster than 64 on an H100 (PERF.md).
+    shadow_tile: int = 32
     shadow_tile_h: int | None = None
 
-    # Screen tile shape for the binned rasterizer. Tiles are flattened
-    # row-major into (tile_h*tile_w/128, 128) VMEM blocks, so tile_h*tile_w
-    # must be a multiple of 128. 64x64 won the round-3 sweep (93.2 vs
-    # 100.5 ms at 32x32): the unroll-8 kernel halved the per-pair fixed
-    # cost, so fewer (tile, tri) pairs now beat smaller pixel blocks —
-    # 32x64/64x128/shadow-tile changes all measured worse
-    # (tools/probe_variants.py r3c/r3d).
-    tile_h: int = 64
-    tile_w: int = 64
-
-    # Triangles processed per inner rasterizer step (list chunk size).
-    raster_chunk: int = 128
-
-    # Chunk size of the select+interp kernel's row stream. Its MXU dot cost
-    # is per-CHUNK fixed (a tile with 10 pairs pays a full chunk-row dot);
-    # the chunk is also the winner-range skip granularity. With the skip,
-    # 128 measured best (tools/probe_select_chunk: 32/64/128/256 ->
-    # 5.04/4.83/4.35/5.06 ms select op) — the skip recovers what sparse
-    # tiles waste, and bigger chunks amortize the per-chunk fixed costs.
-    select_chunk: int = 128
-
-    # Tiles processed per raster-kernel grid step: amortizes the ~1 us
-    # per-step sequencing/writeback overhead over several (often sparsely
-    # populated) tiles. Pure scheduling knob — results are invariant.
-    # (8 measured best in the round-3 sweep, tools/probe_variants.py.)
-    tiles_per_step: int = 8
+    # Screen tile shape for the binned rasterizer: one raster program per
+    # tile, its pixels flattened row-major into a (tile_h*tile_w/128, 128)
+    # block, so tile_h*tile_w must be a power-of-two multiple of 128 and
+    # tile_w must divide 128. Results are tile-size invariant. 32x32
+    # measured faster than 64x64 on an H100 (PERF.md).
+    tile_h: int = 32
+    tile_w: int = 32
 
     # Capacity of the (tile, triangle) pair buffer as a multiple of the
     # triangle capacity, plus a flat reserve for large-footprint triangles.
@@ -69,10 +49,9 @@ class RenderConfig:
     pair_reserve: int = 65536
 
     # Tight per-pass pair capacities (None = the pairs_per_tri formula).
-    # Binning's sort/align/gather costs scale with CAPACITY, not with the
-    # pairs actually generated (measured: 27.8 ms sort + 23.7 ms align at a
-    # 1.07M cap vs 214k real pairs at 1080p) — pipeline.autotune_pair_caps()
-    # measures a frame and returns a config with ~2x-headroom caps.
+    # Binning's sort/gather costs scale with CAPACITY, not with the pairs
+    # actually generated — pipeline.autotune_pair_caps() measures a frame
+    # and returns a config with ~2x-headroom caps.
     # Recompile-per-scene is the PSO-build analogue; overflow stays loud
     # (pipeline.check_stats raises if pairs ever exceed the cap).
     pair_cap_cam: int | None = None
@@ -82,21 +61,11 @@ class RenderConfig:
     # params.point_lights.count, matching ps_main's `i < len` loop).  When
     # set, the shading loop unrolls to exactly this many lights so XLA fuses
     # the whole multi-light BRDF into one elementwise pass (a fori_loop body
-    # is a fusion barrier: the accumulator round-trips HBM per light).
+    # is a fusion barrier: the accumulator round-trips device memory per
+    # light).
     # Changing the light count then recompiles — the PSO-build analogue;
     # the interactive viewer keeps the dynamic loop.
     static_point_lights: int | None = None
-
-    # PCF penumbra classification (quant-LUT path): pixels whose whole
-    # 128-px row is provably fully-lit / fully-shadowed by the min/max
-    # shadow pyramid emit exact 0/1; only penumbra rows — compacted to this
-    # many — pay the per-pixel window gather + tap kernel (both issue-count
-    # bound). None = off (every pixel gathers, the pre-round-4 behavior).
-    # The gather cost scales with this CAPACITY (all cap rows issue), so
-    # size it to the scene: bench.py measures the fly-through's real rate.
-    # Overflow is loud: pipeline stats carry pcf_rows vs pcf_row_cap and
-    # check_stats raises, exactly like the pair buffers.
-    pcf_row_cap: int | None = None
 
     # Reference-scale texture sets (the u16 tile atlas): OPT-IN
     # per-material-group compacted 128-px-row gathers (requires a scene
@@ -105,9 +74,7 @@ class RenderConfig:
     # full-table gather. Values are BIT-IDENTICAL either way (pure row
     # routing); fallback overflow is loud via stats (tex_fb_rows vs
     # tex_fb_cap, like the pair buffers); autotune_tex_group_caps sizes
-    # the caps to a scene/fly-path. MEASURED SLOWER than the plain gather
-    # on the bench fly-through (in-frame per-group tables are cache-cold —
-    # docs/FLOORS.md dead-end record), so nothing enables it by default.
+    # the caps to a scene/fly-path. Nothing enables it by default.
     tex_group_caps: tuple | None = None
 
     # Emulate the R16G16B16A16_FLOAT HDR color target (renderer.cpp:128-144):
@@ -125,18 +92,13 @@ class RenderConfig:
     # fused path only; sun caches always render the full map (they must
     # stay valid as the camera moves). The reference renders the full
     # 4000² map every frame (shadow_map_pass.cpp) — this is a pure
-    # TPU-side work reduction.
+    # work reduction.
     sun_frustum_cull: bool = True
 
-    # With sun_frustum_cull: skip window-LUT build steps whose start_y band
-    # lies outside the cull rect's y range (ops/shadow.build_window_lut_q
-    # y_range — skipped blocks hold garbage no consumed pixel gathers).
-    lut_y_skip: bool = True
-
-    # Fused shading: resolve per-pixel shading inputs inside a per-tile
-    # Pallas kernel (exact one-hot MXU selection over the tile's triangle
-    # list) instead of per-pixel XLA gathers from a shade table. Requires
-    # the tiled rasterizer; ignored under force_bruteforce.
+    # Fused shading: the tiled rasterizer's slot ids feed a per-pixel
+    # G-buffer resolve and channel-first shading (raster_tiles.raster_gbuffer
+    # + pipeline.shade_gbuffer) instead of the deferred per-pixel shade
+    # table. Requires the tiled rasterizer; ignored under force_bruteforce.
     fused_shade: bool = True
 
     # Opt-in image-based specular lighting — the reference's unticked IBL

@@ -24,8 +24,9 @@ Array = jnp.ndarray
 def mat4_mul(a: Array, b: Array) -> Array:
     """4x4 (or batched) matrix product in full f32.
 
-    TPU matmuls default to bf16 MXU passes; transform matrices need the
-    precision (the reference computes these on the CPU in f32).
+    Without a precision an f32 matmul may run in TF32 on the GPU;
+    transform matrices need full f32 (the reference computes these on the
+    CPU in f32).
     """
     return jnp.matmul(a, b, precision=jax.lax.Precision.HIGHEST)
 
@@ -61,7 +62,12 @@ def look_at_rh(eye: Array, center: Array, up: Array) -> Array:
     s = normalize(jnp.cross(f, jnp.asarray(up, jnp.float32)))
     u = jnp.cross(s, f)
     rot = jnp.stack([s, u, -f], axis=0)  # (3,3) rows: right, up, -forward
-    trans = jnp.stack([-jnp.dot(s, eye), -jnp.dot(u, eye), jnp.dot(f, eye)])
+    hi = jax.lax.Precision.HIGHEST
+    trans = jnp.stack([
+        -jnp.dot(s, eye, precision=hi),
+        -jnp.dot(u, eye, precision=hi),
+        jnp.dot(f, eye, precision=hi),
+    ])
     m = jnp.zeros((4, 4), jnp.float32)
     m = m.at[:3, :3].set(rot)
     m = m.at[:3, 3].set(trans)

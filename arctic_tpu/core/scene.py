@@ -1,9 +1,9 @@
 """Scene / settings data model as JAX pytrees.
 
-TPU-native replacement for the reference's POD structs (src/renderer/scene.hpp:
+Replacement for the reference's POD structs (src/renderer/scene.hpp:
 20-110).  Where the reference keeps per-resource GPU handles (Mesh/Material own
 ID3D12Resource + descriptor offsets, scene.hpp:49-69), here *all* geometry is
-flattened into HBM-resident SoA arrays at load time and materials become rows
+flattened into device-resident SoA arrays at load time and materials become rows
 of an atlas lookup table — the pytree field names play the role the descriptor
 heap played.
 
@@ -159,22 +159,17 @@ class Settings:
 
 @_pytree_dataclass
 class SunCache:
-    """Shadow-map products that depend only on (geometry, sun) — cacheable
+    """The shadow map, which depends only on (geometry, sun) — cacheable
     across frames while the camera flies (pipeline.build_sun_cache).
 
-    The reference re-renders its 4000^2 shadow map every frame because a GPU
-    rasterizes the scene in well under a millisecond; the TPU shadow chain
-    (binning + depth raster + window-LUT build) is ~10 ms of the frame, so a
-    real deployment keeps it cached and invalidates on sun/geometry edits —
-    the standard cached-shadow-map scheme production engines use for
-    stationary lights. Rendering with a cache is bit-for-bit the math of
-    rendering without one (the cached arrays are exactly what the in-frame
-    build produces)."""
+    The reference re-renders its 4000^2 shadow map every frame on its
+    hardware rasterizer; here a deployment may keep it cached and
+    invalidate it on sun/geometry edits — the standard cached-shadow-map
+    scheme production engines use for stationary lights. Rendering with a
+    cache is the math of rendering without one (the cached map holds
+    exactly the texels the in-frame pass would sample)."""
 
     shadow_map: jnp.ndarray  # (S, S) f32 depth
-    lutq: jnp.ndarray  # (N, 128) i32 quantized window LUT
-    pyramid: jnp.ndarray | None  # (M,) i32 packed min/max pyramid; None
-    # unless pcf_row_cap classification will consume it (VERDICT r4 weak #5)
 
 
 @_pytree_dataclass
@@ -208,12 +203,10 @@ class Geometry:
     num_tris: jnp.ndarray  # i32 scalar, valid triangle count (<= T)
 
     # Tri-major static shading data, precomputed at build time so the fused
-    # shading path needs ZERO per-frame vertex gathers (XLA gathers are
-    # latency-bound at ~14 ns/row; the old per-frame shade-table build paid
-    # ~38 ms/frame in them). None on hand-built Geometry; io.build fills them.
-    # Component-plane layouts ((K, T) with the triangle dim MINOR): these are
-    # read whole every frame, and small-minor forms like (T, 4, 4) are
-    # tile-padded up to 32x by XLA's (8, 128) layout.
+    # shading path needs no per-frame vertex gathers. None on hand-built
+    # Geometry; io.build fills them. Component-plane layouts ((K, T) with
+    # the triangle dim MINOR): these are read whole every frame, and every
+    # consumer then works on dense (T,) planes.
     tri_corner_pos: jnp.ndarray = None  # (9, T) f32 object-space corners, row c*3+i
     tri_obj: jnp.ndarray = None  # (T,) i32 object id per triangle
     tri_trs: jnp.ndarray = None  # (16, T) f32 world TRS per triangle, row i*4+j
@@ -221,15 +214,6 @@ class Geometry:
     #    gather per triangle per frame)
     tri_static_attrs: jnp.ndarray = None  # (33, T) f32 [n, t, b, uv] row c*11+k
     tri_matrow: jnp.ndarray = None  # (23, T) f32 [regions 12, mr_c 4, nm_c 3, combined region 4]
-    # Slot-major static half of the fused shade-row table, precomputed at
-    # build time so the per-frame build streams it straight into the
-    # pack_shade_rows kernel instead of re-concatenating 56 of the 128
-    # table lanes every frame (the full-table stack was a 516 MB-traffic
-    # concatenate, ~1.1 ms at 1080p scene scale):
-    #   rows [0:33)  tri_static_attrs dup'd to clip-slot order ([tri; tri])
-    #   rows [33:56) tri_matrow dup'd likewise
-    # padded with zero columns to the table's 512-aligned slot capacity.
-    slot_static_rows: jnp.ndarray = None  # (56, NT) f32
 
     @property
     def capacity(self) -> int:
@@ -253,9 +237,8 @@ class TextureAtlas:
     quads: jnp.ndarray  # (4*BH*BW, 16) parity-shifted 2x2 quad copies
     regions: jnp.ndarray  # (M, 3, 4) i32: per material x slot -> (y, x, h, w)
     # Dense 8-quads-per-row packing of ``quads`` ((ceil(Q/8), 128), same
-    # dtype): a (Q, 16) f32 table tile-pads 16 -> 128 lanes (8x memory, HBM
-    # cache-hostile — measured 17 ns/row vs ~2 ns dense); consumers gather
-    # row q//8 and select 16 lanes by q%8 (ops.sampling.sample_quads_packed).
+    # dtype); consumers gather row q//8 and select 16 lanes by q%8
+    # (ops.sampling.sample_quads_packed).
     quads_packed: jnp.ndarray = None
     # Per-material constant-texture values (normal / metal-roughness slots);
     # meaningful where the static flags below are True.
@@ -264,8 +247,7 @@ class TextureAtlas:
     # Static jit-specialization flags: when every material's normal (resp.
     # metal-roughness) texture is constant, its per-pixel sample IS the
     # constant (bilinear of equal texels is exact), so the gather can be
-    # elided — gathers cost ~14 ns/row on TPU, ~28 ms per texture per frame
-    # at 1080p.
+    # elided — one per-pixel gather less per constant slot.
     nm_constant: bool = static_field(default=False)
     mr_constant: bool = static_field(default=False)
 
@@ -294,26 +276,23 @@ class TextureAtlas:
     tiles_ntex: int = static_field(default=0)
     # Material-group partition of ``tiles`` (io.build.group_tile_atlas):
     # the table is laid out as [group-0 tiles | env copy | group-1 tiles |
-    # env copy | ...] with each group's slice under the ~112 MB
-    # warm-gather tier (tools/probe_gather_cliff; in-frame the grouped
-    # route measured SLOWER than the plain gather — cold tables,
-    # docs/FLOORS.md — so it is opt-in). Rows are
+    # env copy | ...] with each group's slice under
+    # io.build.TEX_GROUP_BUDGET_BYTES (the grouped route is opt-in; the
+    # plain full-table gather is the default). Rows are
     # (mstart, env_base, end): absolute row bounds of the slice and its
     # env-copy base. A single entry == the ungrouped layout (tiles_ntex ==
     # that entry's env_base). Consumed by
     # ops.sampling.tile_tap_resolve_grouped when config.tex_group_caps is
     # set; the plain full-table gather ignores it. tile_group_of maps
     # material id -> group (groups may be non-contiguous in material id —
-    # io.texplan plans them from measured row co-occurrence).
+    # io.texplan plans them from rendered row co-occurrence).
     tile_groups: tuple = static_field(default=None)
     tile_group_of: tuple = static_field(default=None)
     tile_mat_rows: tuple = static_field(default=None)  # tile rows per material
-    # Materialized per-group tables (copies of tiles[mstart:end]). The
-    # grouped gather MUST read true small operands: XLA fuses an in-graph
-    # slice into the gather, whose operand is then the full table — every
-    # per-group gather measured back at the slow tier (7-12 ns/row,
-    # hlo_r5c textured). ~2x HBM for the atlas; built only for multi-group
-    # (reference-scale) scenes.
+    # Materialized per-group tables (copies of tiles[mstart:end]): the
+    # grouped gather reads true small operands (XLA fuses an in-graph slice
+    # into the gather, whose operand is then the full table). ~2x device
+    # memory for the atlas; built only for the opt-in grouped route.
     tile_group_tables: tuple = None
 
     @property

@@ -184,8 +184,8 @@ def _round_up(x: int, m: int) -> int:
 
 
 # Above this many combined texels the bf16 quad tables (~96 B/texel with the
-# 4 parity copies) blow past the ~96 MB gather cliff AND waste HBM; switch to
-# the u16 tile atlas (~24 B/texel, ops/sampling.py TILE_* geometry).
+# 4 parity copies) waste device memory; switch to the u16 tile atlas
+# (~24 B/texel, ops/sampling.py TILE_* geometry).
 TILE_ATLAS_THRESHOLD_TEXELS = 1_000_000
 
 
@@ -194,8 +194,8 @@ def build_tile_atlas(images: Sequence[np.ndarray]):
 
     images: one (h, w, 8) f32 array per material, channels [diffuse RGB
     linear, normal XYZ, mr G, mr B]. Each image gets a 1-texel wrapped
-    border, is quantized to u16 (round-to-nearest — the same transform the
-    PCF LUT applies; <= 7.7e-6 per channel), and is cut into 4x8-texel
+    border, is quantized to u16 (round-to-nearest; <= 7.7e-6 per channel),
+    and is cut into 4x8-texel
     tiles on a (3, 7) grid so any bilinear 2x2 window lives in ONE tile.
     Tile row lanes: ch2 * 32 + y * 8 + x holds channels 2*ch2 | 2*ch2+1<<16.
     meta rows are (row base, tiles per row, h, w).
@@ -231,11 +231,9 @@ def build_tile_atlas(images: Sequence[np.ndarray]):
     return np.concatenate(parts), metas
 
 
-# Per-group slice budget for reference-scale tile atlases: gathers from
-# (N, 128) tables run ~1.8 ns/row while the table is under ~112 MB and
-# ~9.9 ns/row above (tools/probe_gather_cliff, measured on v5e) — so the
-# atlas is partitioned into material groups whose [tiles + env copy] slices
-# stay under the tier (see group_tile_atlas / sampling.tile_tap_resolve_grouped).
+# Per-group slice budget for the opt-in grouped tile route: the atlas is
+# partitioned into material groups whose [tiles + env copy] slices stay
+# under this size (see group_tile_atlas / sampling.tile_tap_resolve_grouped).
 TEX_GROUP_BUDGET_BYTES = 104 * 1024 * 1024
 
 
@@ -335,7 +333,7 @@ def build_buffers(
     tex_group_budget: int | None = None,
     tex_groups=None,
 ) -> SceneBuffers:
-    """Flatten a scene into device buffers (one host->HBM transfer each)."""
+    """Flatten a scene into device buffers (one host->device transfer each)."""
     pos_l, nrm_l, tan_l, btn_l, uv_l, vobj_l = [], [], [], [], [], []
     idx_l, mat_l = [], []
     vbase = 0
@@ -573,23 +571,8 @@ def build_buffers(
     )  # (M, 23)
     import dataclasses as _dc
 
-    # Static half of the fused shade-row table (see Geometry.slot_static_rows
-    # / pipeline.build_shade_rows): attrs + material rows dup'd to clip-slot
-    # order ([primary tris; secondary tris]) and zero-padded to the table's
-    # 512-aligned capacity, so the per-frame table build only concatenates
-    # the genuinely per-frame planes.
     matrow_tri = matrow_by_mat[tri_mat].T  # (23, cap)
-    n_total = _round_up(2 * cap + 1, 512)
-    slot_static = np.zeros((56, n_total), np.float32)
-    slot_static[0:33, 0:cap] = tri_static_attrs.reshape(-1, 33).T
-    slot_static[0:33, cap : 2 * cap] = slot_static[0:33, 0:cap]
-    slot_static[33:56, 0:cap] = matrow_tri
-    slot_static[33:56, cap : 2 * cap] = matrow_tri
-    geometry = _dc.replace(
-        geometry,
-        tri_matrow=jnp.asarray(matrow_tri.copy()),
-        slot_static_rows=jnp.asarray(slot_static),
-    )
+    geometry = _dc.replace(geometry, tri_matrow=jnp.asarray(matrow_tri.copy()))
 
     env_atlas = TextureAtlas(
         data=jnp.asarray(env_data, jnp.float32),
@@ -618,10 +601,8 @@ def build_buffers(
             tile_mat_rows=tile_mat_rows,
             # Real per-group device tables (not slices): see
             # core.scene.TextureAtlas.tile_group_tables. Only for the
-            # OPT-IN grouped route (explicit tex_groups) — it measured
-            # slower than the plain gather on the bench fly-through (cold
-            # tables gather at the miss tier regardless of size,
-            # docs/FLOORS.md), so default builds skip the ~2x atlas HBM.
+            # OPT-IN grouped route (explicit tex_groups), so default builds
+            # skip the ~2x atlas memory.
             tile_group_tables=(
                 tuple(
                     jnp.asarray(tiles_np[lo:hi])

@@ -47,7 +47,7 @@ class GltfUnsupportedError(RuntimeError):
     """A required glTF feature this loader does not implement."""
 
 from arctic_tpu.io.build import MaterialImages, MeshData, fallback_diffuse, fallback_normal
-from arctic_tpu.io.images import load_ldr
+from arctic_tpu.io.images import decode_image, load_ldr
 
 _COMPONENT_DTYPE = {
     5120: np.int8,
@@ -164,24 +164,13 @@ def _image_for_texture(gltf: _Gltf, tex_index: int) -> np.ndarray:
     if "uri" in img:
         uri = img["uri"]
         if uri.startswith("data:"):
-            import io as _io
-
-            from PIL import Image
-
-            raw = base64.b64decode(uri.split(",", 1)[1])
-            with Image.open(_io.BytesIO(raw)) as im:
-                return np.asarray(im.convert("RGBA"), np.uint8)
+            return decode_image(base64.b64decode(uri.split(",", 1)[1]))
         return load_ldr(os.path.join(gltf.base_dir, uri))
     bv = gltf.doc["bufferViews"][img["bufferView"]]
     raw = gltf.buffers[bv["buffer"]][
         bv.get("byteOffset", 0) : bv.get("byteOffset", 0) + bv["byteLength"]
     ]
-    import io as _io
-
-    from PIL import Image
-
-    with Image.open(_io.BytesIO(raw)) as im:
-        return np.asarray(im.convert("RGBA"), np.uint8)
+    return decode_image(bytes(raw))
 
 
 def _node_trs(node: dict) -> np.ndarray:

@@ -4,8 +4,7 @@ The reference only imports scenes; this writer exists so the asset path
 (gltf loader -> tangent gen -> atlas -> pipeline) can be exercised and
 benchmarked on arbitrarily large scenes without shipping binary fixtures:
 bench.py exports the procedural Sponza-class colonnade to a GLB and loads
-it back through arctic_tpu.io.gltf (VERDICT r2: "benchmark the asset
-path"). Round-trip conventions mirror the loader exactly (io/gltf.py):
+it back through arctic_tpu.io.gltf. Round-trip conventions mirror the loader exactly (io/gltf.py):
 v-flipped UVs (MeshData stores v already FlipUVs-style), per-node
 ``matrix`` TRS, pbrMetallicRoughness with baseColor/normal/MR textures
 as embedded PNGs. Tangents are deliberately NOT written — the loader
@@ -15,7 +14,6 @@ assets without TANGENT take.
 
 from __future__ import annotations
 
-import io
 import json
 import struct
 from typing import Sequence
@@ -23,14 +21,11 @@ from typing import Sequence
 import numpy as np
 
 from arctic_tpu.io.build import MaterialImages, MeshData
+from arctic_tpu.io.images import encode_png
 
 
 def _png_bytes(img: np.ndarray) -> bytes:
-    from PIL import Image
-
-    return_buf = io.BytesIO()
-    Image.fromarray(np.ascontiguousarray(img)).save(return_buf, format="PNG")
-    return return_buf.getvalue()
+    return encode_png(np.ascontiguousarray(img))
 
 
 def scene_to_glb(

@@ -231,18 +231,26 @@ def helmet_like_scene():
     return meshes, objects, materials, env
 
 
+def bilinear_upsample(g: np.ndarray, size: int) -> np.ndarray:
+    """(f, f) -> (size, size) bilinear resample, texel centers aligned
+    (src = (dst + 0.5) * f / size - 0.5), edges clamped."""
+    f = g.shape[0]
+    t = (np.arange(size, dtype=np.float32) + 0.5) * (f / size) - 0.5
+    t = np.clip(t, 0.0, f - 1)
+    i0 = np.minimum(np.floor(t).astype(np.int64), f - 1)
+    i1 = np.minimum(i0 + 1, f - 1)
+    w = (t - i0).astype(np.float32)
+    rows = g[i0] * (1.0 - w)[:, None] + g[i1] * w[:, None]  # (size, f)
+    return rows[:, i0] * (1.0 - w)[None, :] + rows[:, i1] * w[None, :]
+
+
 def noisy_texture(size, rng, base=(160, 150, 130), amp=60, freqs=(4, 16, 64)) -> np.ndarray:
     """Multi-octave value-noise RGBA — content for reference-scale textures
     (every texel distinct, so no constant-slot elision kicks in)."""
-    from PIL import Image
-
     acc = np.zeros((size, size), np.float32)
     for f in freqs:
         g = rng.uniform(-1.0, 1.0, (f, f)).astype(np.float32)
-        im = Image.fromarray(((g + 1) * 127.5).astype(np.uint8)).resize(
-            (size, size), Image.BILINEAR
-        )
-        acc += (np.asarray(im).astype(np.float32) / 127.5 - 1.0) / len(freqs)
+        acc += bilinear_upsample(g, size) / len(freqs)
     img = np.zeros((size, size, 4), np.uint8)
     for c in range(3):
         img[..., c] = np.clip(base[c] + amp * acc * (0.7 + 0.15 * c), 0, 255)
@@ -298,7 +306,7 @@ def sponza_like_scene(columns=14, rng_seed=7, texture_size=None, n_materials=24)
 
     ``texture_size`` (e.g. 1024) switches to ``n_materials`` reference-scale
     materials (three texture_size^2 maps each — the real Khronos Sponza's
-    texture load, VERDICT r3 missing #2) assigned round-robin across object
+    texture load) assigned round-robin across object
     instances; geometry is unchanged so benchmarks isolate the texture cost.
     """
     rng = np.random.default_rng(rng_seed)

@@ -1,36 +1,27 @@
-"""Host-side texture material-group planning from measured row masks.
+"""Host-side texture material-group planning from rendered row masks.
 
-The grouped-tile gather (ops.sampling.tile_tap_resolve_grouped) routes each
-128-px row through its touched material groups: rows touching one group pay
-one fast-tier gather, two groups pay two (dual-claim), more fall back to
-the slow full-table gather. The grouping therefore sets the cost — and the
-bench scene assigns materials round-robin across objects, so grouping by
-material ID mixes 45%+ of rows (tools/probe_tex_groups). This module plans
-groups from MEASURED row co-occurrence (pipeline.measure_tex_row_masks over
-a camera path) with a simulated-annealing swap search under the measured
-cost model (docs/FLOORS.md):
+The opt-in grouped-tile gather (ops.sampling.tile_tap_resolve_grouped)
+routes each 128-px row through its touched material groups: rows touching
+one group pay one group-table gather, two groups pay two (dual-claim), more
+fall back to the full-table gather. The grouping therefore sets the cost —
+and the bench scene assigns materials round-robin across objects, so
+grouping by material ID mixes many rows. This module plans groups from
+rendered row co-occurrence (pipeline.measure_tex_row_masks over a camera
+path) with a simulated-annealing swap search under a relative cost model:
 
-    cost ~ 128 * (1.81 ns * (uniform + 2 * dual rows) + 9.90 ns * fallback)
+    cost ~ 128 * (W_GROUP * (uniform + 2 * dual rows) + W_FALLBACK * fallback)
 
-On the textured bench fly-through this cuts the modeled tap-gather cost
-from 7.3 ms (contiguous-by-id groups) to ~5.7 ms (tools/plan_tex_groups
-records the search on dumped masks). Rebuild buffers with the planned
-groups via build_buffers(..., tex_groups=plan).
-
-CAVEAT (measured, docs/FLOORS.md): the cost model assumes per-group
-tables gather at the warm 1.81 ns/row tier — in-frame they are COLD and
-measured 5-12 ns/row, so the whole grouped route ran SLOWER than the
-plain full-table gather on the bench (75-97 vs 55 ms/frame). The
-machinery is kept opt-in (bit-identical) for scenes/caches where the
-assumption holds; the bench ships the plain gather.
+The weights are an assumption of the design (a full-table gather row costs
+several group-table rows), not a measurement on the GPU. Rebuild buffers
+with the planned groups via build_buffers(..., tex_groups=plan).
 """
 
 from __future__ import annotations
 
 import numpy as np
 
-NS_FAST = 1.81
-NS_SLOW = 9.90
+W_GROUP = 1.0
+W_FALLBACK = 5.5
 
 
 def _touch_stats(masks: np.ndarray, gsets: list[int]):
@@ -46,7 +37,7 @@ def _touch_stats(masks: np.ndarray, gsets: list[int]):
 
 def _cost(uni, dual, many, n_frames):
     return (
-        128.0 * (NS_FAST * (uni + 2 * dual) + NS_SLOW * many) / n_frames / 1e6
+        128.0 * (W_GROUP * (uni + 2 * dual) + W_FALLBACK * many) / n_frames
     )
 
 
@@ -62,8 +53,9 @@ def plan_material_groups(
 
     masks: (F, R) int bitmasks from pipeline.measure_tex_row_masks;
     mat_rows: tile rows per material; env_rows / budget_rows: the env-copy
-    size and per-group row budget (a group + env must stay under the
-    fast-gather tier). Returns (groups list-of-lists, modeled_cost_ms).
+    size and per-group row budget (a group + env must stay under it).
+    Returns (groups list-of-lists, modeled cost per frame in W_GROUP
+    row-units).
     """
     m = len(mat_rows)
     masks = masks.astype(np.int64)

@@ -10,7 +10,7 @@ the two implementations can check each other:
 - R16G16B16A16_FLOAT storage rounding and UNORM8 conversion
 
 Textures are sampled straight from each material's images (no atlas), so the
-atlas/addressing machinery of the TPU path is cross-checked too.
+atlas/addressing machinery of the production path is cross-checked too.
 Deliberately slow (Python triangle loop) — use small frames.
 """
 

@@ -43,17 +43,6 @@ from arctic_tpu.ops.sampling import (
 
 Array = jnp.ndarray
 
-# Materialization-fence knobs (tools/probe_variants.py measures them on
-# hardware). r3f sweep (post resolve-kernel): shade-rows fence off is
-# ~0.7 ms better (69.54 vs 70.26, consistent with r3a); gbuf fence off is
-# 2.5 ms WORSE (XLA re-fuses the select kernel's output consumer chain).
-# Re-swept r5 post-restructuring via the env overrides: unchanged verdict.
-import os as _os
-
-FENCE_SHADE_ROWS = _os.environ.get("ARCTIC_FENCE_SHADE_ROWS", "0") == "1"
-FENCE_GBUF = _os.environ.get("ARCTIC_FENCE_GBUF", "1") == "1"
-
-
 def vertex_world_positions(geom: Geometry) -> Array:
     """Apply per-object TRS to vertices (depth.hlsl:9 / forward.hlsl:52)."""
     trs = geom.object_trs[geom.vertex_object]  # (V, 4, 4)
@@ -128,9 +117,7 @@ def _rasterize(
     """Returns (zbuf, ibuf, pairs_used, pair_cap). The brute-force path has
     no pair buffer, so it can never overflow (reported as 0/1)."""
     if config.force_bruteforce:
-        zbuf, ibuf = raster.rasterize_bruteforce(
-            setup, height, width, config.raster_chunk
-        )
+        zbuf, ibuf = raster.rasterize_bruteforce(setup, height, width)
         return zbuf, ibuf, jnp.int32(0), 1
     from arctic_tpu.ops import raster_tiles
 
@@ -143,7 +130,7 @@ def _rasterize(
 
 def shadow_pass(
     geom: Geometry, sun_pv: Array, config: RenderConfig, sun_clip=None,
-    cull_rect=None, lut_rows: bool = False,
+    cull_rect=None,
 ) -> Array:
     """Depth-only pass from the sun's view (shadow_map_pass.cpp:113-169).
 
@@ -156,11 +143,6 @@ def shadow_pass(
     skips binning/rasterizing tiles no shaded pixel's PCF window can read
     (texels there keep the 1.0 clear). In-rect tiles get identical pair
     lists, so sampled texels — and the frame — are bit-identical.
-
-    ``lut_rows``: emit the depth ROW-major in the window-LUT build's input
-    layout instead of an untiled (S, S) map (the untile transpose + retile
-    copies cost ~0.5 ms/frame at 4000^2 — see bin_and_rasterize). Values
-    are identical; only the layout differs (rows [S:], cols [S:] junk).
     """
     if sun_clip is None:
         sun_clip = corners_clip(world_corners(geom), sun_pv)
@@ -168,20 +150,6 @@ def shadow_pass(
     clipped = raster.near_clip_corners(sun_clip, tri_valid)
     s = config.shadow_size
     setup = raster.setup_screen_triangles(clipped, s, s, cull="front")
-    if lut_rows:
-        from arctic_tpu.ops import raster_tiles
-
-        st = config.shadow_tile
-        sth = config.shadow_tile_h or st
-        tiles_x = -(-s // st)
-        tile_rows = -(-s // sth)
-        zflat, _, _, pairs, _ = raster_tiles.bin_and_rasterize(
-            setup, s, config, tiles_x, tile_rows, sth, st, 0,
-            kind="shadow", depth_only=True, rect=cull_rect, lut_rows=True,
-        )
-        return zflat, pairs.total_pairs, config.pair_capacity(
-            setup.capacity, "shadow"
-        )
     zbuf, _, pairs, cap = _rasterize(
         setup, s, s, config, tile=config.shadow_tile,
         tile_h=config.shadow_tile_h, kind="shadow", rect=cull_rect,
@@ -207,20 +175,14 @@ def scene_aabb(wc, tri_valid):
     return jnp.stack(los), jnp.stack(his)
 
 
-def sun_cull_rect(
-    wc, tri_valid, cam_pv, sun_pv, config: RenderConfig, with_y_band=False
-):
-    """Conservative shadow-tile rect for shadow_pass (ops/cull.py).
-
-    ``with_y_band``: also return the (y_lo, y_hi) window-start_y band for
-    build_window_lut_q's y-skip (see cull.shadow_cull_rect)."""
+def sun_cull_rect(wc, tri_valid, cam_pv, sun_pv, config: RenderConfig):
+    """Conservative shadow-tile rect for shadow_pass (ops/cull.py)."""
     from arctic_tpu.ops import cull
 
     lo, hi = scene_aabb(wc, tri_valid)
     sth = config.shadow_tile_h or config.shadow_tile
     return cull.shadow_cull_rect(
-        cam_pv, sun_pv, lo, hi, config.shadow_size, sth, config.shadow_tile,
-        with_y_band=with_y_band,
+        cam_pv, sun_pv, lo, hi, config.shadow_size, sth, config.shadow_tile
     )
 
 
@@ -287,152 +249,62 @@ def build_shade_rows(
     sun_pv: Array,
     wc=None,
     lsp=None,
-    vma: tuple = (),
 ) -> Array:
-    """Full 128-lane shade rows per slot for the fused select+interp kernel.
+    """Per-slot shading rows (P, SHADE_LANES) f32 for resolve_gbuffer.
 
-    Unlike build_shade_table (the deferred path), this build performs NO
-    per-frame vertex gathers: clip slots are [primary tris; secondary tris]
-    (raster.near_clip_triangles), i.e. orig_tri == [0..T, 0..T], so tri-major
-    data concatenates straight into slot order, and the per-corner world /
-    light-space positions come from the precomputed tri-major corner
-    positions + the per-triangle TRS planes. Everything is dense (P,)
-    components feeding ONE stack — XLA fuses the whole build into the
-    table write with no tile-padded intermediates.
+    No per-frame vertex gathers: clip slots are [primary tris; secondary
+    tris] (raster.near_clip_triangles), i.e. orig_tri == [0..T, 0..T], so
+    tri-major data concatenates straight into slot order, and the corner
+    world / light-space positions come from the precomputed tri-major
+    corners and per-triangle TRS planes.
 
-    Lane layout (groups 8-aligned for the kernel's sublane slices):
-      [0:9)    perspective-bary planes (A,B,C per corner, * inv_area2 / w_c)
-      [9]      slot id as exact f32 (the kernel's one-hot key)
-      [16:33)  corner-0 attrs: world pos 3, n 3, t 3, b 3, uv 2, light-space 3
-      [40:57)  corner-1 attrs, [64:81) corner-2 attrs
-      [88:111) material row: atlas regions 12, mr_consts 4, nm_consts 3,
+    Lane layout (raster_tiles.SHADE_LANES):
+      [0:9)    perspective-bary planes (A, B, C per corner, * inv_area2 / w_c;
+               their pixel evaluation IS the unnormalized perspective weight)
+      [9:26)   corner-0 attrs: world pos 3, n 3, t 3, b 3, uv 2, light-space 3,
+               blended through the near-clip corner barycentrics
+      [26:43)  corner-1 attrs, [43:60) corner-2 attrs
+      [60:83)  material row: atlas regions 12, mr_consts 4, nm_consts 3,
                combined-atlas region 4
-      [112:125) RAW raster planes: A,B,C per edge (9), z plane (3), slot id
-               — pack_raster_rows' layout at lane base 112, so the camera
-               raster kernel streams THIS table too (no separate 16-lane
-               row table/gather for the camera pass; the scaled [0:9)
-               lanes still feed the select kernel's barycentrics)
+      [83:88)  zero
     Light-space positions store xyz only: the sun is orthographic
     (scene.cpp:61-70) so clip w == 1 and no perspective divide is needed.
     """
+    from arctic_tpu.ops.raster_tiles import SHADE_LANES
+
     t_cap = geom.capacity
     p = setup.capacity
     assert p == 2 * t_cap, "clip slots must be [primary; secondary] tri-major"
-
-    # World + light-space corners, shared with the raster setup when the
-    # caller already computed them (render_frame_stats computes both once).
     if wc is None:
-        wc = world_corners(geom)  # corner components
+        wc = world_corners(geom)
     if lsp is None:
-        sc = corners_clip(wc, sun_pv)
-        lsp = tuple(c[:3] for c in sc)  # sun is ortho: clip w == 1
-
-    if geom.slot_static_rows is not None:
-        # Hot path: the static 56 lanes (attrs + material rows) were dup'd
-        # to slot order at build time; only the genuinely per-frame planes
-        # (42 rows) are stacked here, and the pack_shade_rows kernel blends
-        # corners, scales the bary planes, synthesizes the slot-id lanes,
-        # and writes the transposed table in one streaming pass — replacing
-        # the full 128-lane stack (a 516 MB-traffic concatenate) with a
-        # bit-identical build at ~1/3 the HBM traffic.
-        from arctic_tpu.ops.raster_tiles import pack_shade_rows, pack_shade_rows_tm
-
-        n_total = -(-(p + 1) // 512) * 512
-        assert geom.slot_static_rows.shape == (56, n_total), (
-            geom.slot_static_rows.shape,
-            n_total,
-        )
-        n_pad = n_total - p
-        rows = []
-        for c in range(3):
-            rows += list(setup.edges[c])  # [0:9) raw A,B,C per corner
-        rows += list(setup.zplane)  # [9:12)
-        rows += [setup.inv_area2 / setup.w[c] for c in range(3)]  # [12:15)
-        for c in range(3):
-            rows += [setup.cb[c][k] for k in range(3)]  # [15:24)
-
-        cap = geom.capacity
-        if cap % 512 == 0 and p == 2 * cap + 1:
-            # The 18 wc/lsp planes are per-TRIANGLE; the kernel dups them
-            # to slot order via a modular block map instead of stacking a
-            # [tri; tri] copy (~80 MB less HBM traffic at bench scale).
-            pf = jnp.stack([jnp.pad(a, (0, n_pad)) for a in rows], axis=0)
-            tri = jnp.stack(
-                [wc[k][i] for k in range(3) for i in range(3)]
-                + [lsp[k][i] for k in range(3) for i in range(3)],
-                axis=0,
-            )  # (18, cap) tri-major
-            return pack_shade_rows_tm(
-                pf, tri, geom.slot_static_rows, p, vma=vma
-            )
-
-        def dup(a):  # tri-major (T,) -> slot-major (P,)
-            return jnp.concatenate([a, a])
-
-        for k in range(3):
-            rows += [dup(x) for x in wc[k]]  # [24:33)
-        for k in range(3):
-            rows += [dup(x) for x in lsp[k]]  # [33:42)
-        pf = jnp.stack([jnp.pad(a, (0, n_pad)) for a in rows], axis=0)
-        pf = jnp.concatenate([pf, jnp.zeros((6, n_total), jnp.float32)])
-        return pack_shade_rows(pf, geom.slot_static_rows, p, vma=vma)
+        lsp = tuple(c[:3] for c in corners_clip(wc, sun_pv))
 
     def dup(a):  # tri-major (T,) -> slot-major (P,)
         return jnp.concatenate([a, a])
 
-    # att[k] = 17 components of original corner k, slot-major.
+    # att[k] = the 17 components of original corner k, slot-major.
     sa = geom.tri_static_attrs  # (33, T) rows k * 11 + j
     att = [
         [dup(x) for x in (*wc[k], *(sa[11 * k + j] for j in range(11)), *lsp[k])]
         for k in range(3)
     ]
-
     cb = setup.cb  # 3 x 3 x (P,)
-    corner_attr = [
-        [
+    comps = []
+    for c in range(3):
+        a, b, cc = setup.edges[c]
+        s = setup.inv_area2 / setup.w[c]
+        comps += [a * s, b * s, cc * s]
+    for c in range(3):
+        comps += [
             cb[c][0] * att[0][j] + cb[c][1] * att[1][j] + cb[c][2] * att[2][j]
             for j in range(17)
         ]
-        for c in range(3)
-    ]
-
-    z = jnp.zeros((p,), jnp.float32)
-    comps = []
-    for c in range(3):  # ebw: [0:9)
-        A, B, C = setup.edges[c]
-        s = setup.inv_area2 / setup.w[c]
-        comps += [A * s, B * s, C * s]
-    comps.append(jnp.arange(p, dtype=jnp.float32))  # sid [9]
-    comps += [z] * 6
-    for c in range(3):
-        comps += corner_attr[c]
-        comps += [z] * 7
     mr = geom.tri_matrow  # (23, T)
     comps += [dup(mr[j]) for j in range(23)]
-    comps += [z]  # [111]
-    comps += [c for e in setup.edges for c in e]  # [112:121) raw A,B,C x3
-    comps += list(setup.zplane)  # [121:124)
-    comps.append(jnp.arange(p, dtype=jnp.float32))  # [124] raster slot id
-    comps += [z] * 3
-    assert len(comps) == 128
-    # Rows past p are padding (>= 1 dead row at slot p); they carry sid -2
-    # (never matched by the select kernel) and zero planes (masked by the
-    # raster kernel's range checks). Padding to a 512 multiple lets the
-    # transpose-pack kernel tile the table evenly; an axis-1 stack would
-    # be built column-major by XLA and cost a separate 258 MB relayout
-    # copy + pad before the row gather / kernel DMA could run (2.7 ms
-    # profiled) — the axis-0 stack is row-major for free and
-    # transpose_pack_rows does the rest at streaming bandwidth.
-    from arctic_tpu.ops.raster_tiles import transpose_pack_rows
-
-    n_total = -(-(p + 1) // 512) * 512
-    n_pad = n_total - p
-
-    def padc(a, fill=0.0):
-        return jnp.pad(a, (0, n_pad), constant_values=fill)
-
-    comps = [padc(a, -2.0 if i == 9 else 0.0) for i, a in enumerate(comps)]
-    return transpose_pack_rows(jnp.stack(comps, axis=0), vma=vma)
+    z = jnp.zeros((p,), jnp.float32)
+    comps += [z] * (SHADE_LANES - len(comps))
+    return jnp.stack(comps, axis=1)
 
 
 def shade(
@@ -486,7 +358,7 @@ def shade(
 
     # Sample only the non-constant texture slots (static per scene): a
     # constant texture's bilinear sample IS the constant, which rides along
-    # in the slot row — each elided slot saves a 2M-row gather (~28 ms).
+    # in the slot row — each elided slot saves a per-pixel gather.
     atlas = buffers.atlas
     slots = [0] + ([1] if not atlas.nm_constant else []) + (
         [2] if not atlas.mr_constant else []
@@ -585,33 +457,25 @@ def shade_gbuffer(
     config: RenderConfig,
     tiles_x: int,
     tile_row0=0,
-    vma: tuple = (),
-    with_pcf_rows: bool = False,
-    sun_lut: Array | None = None,
-    sun_pyr: Array | None = None,
-    lut_y_range: Array | None = None,
-    lut_raw: Array | None = None,
 ):
-    """forward.hlsl ps_main over the fused kernel's G-buffer, LANE-major.
+    """forward.hlsl ps_main over the G-buffer, channel-leading.
 
     gbuf: (GBUF_LANES, R, 128) from ops.raster_tiles.raster_gbuffer —
     already perspective-interpolated, so this is pure per-pixel math + the
-    texture / PCF taps. R = num_tiles * tile_px / 128: the pixel-BLOCK
+    texture / PCF taps. R = num_tiles * tile_px / 128: the pixel-block
     layout, where row r lane l is pixel 128 * r + l of the row-major tile
     pixel stream. Lane map: [0:3 wp, 3:6 n, 6:9 t, 9:12 b, 12:14 uv,
     14:17 light-space xyz, 24:36 atlas regions, 36:40 mr const, 40:43 nm
-    const, 43:47 combined-atlas region]. Returns HDR (3, R, 128).
+    const, 43:47 combined-atlas region]. Returns (HDR (3, R, 128),
+    tex_fb_rows) — the grouped-tile fallback row count (0 when that opt-in
+    route is off).
 
-    Everything here keeps the PIXEL dims minor (vectors (3, R, 128),
-    scalars (1, R, 128) or (R, 128)): XLA assigns non-standard layouts to
-    channel-LAST (pixels, 3) elementwise chains and paid ~200 ms/frame in
-    layout copies; the channel-LEADING form matches the select kernel's
-    physical output layout exactly, and the (R, 128) pixel-block shape is
-    bitcast-compatible with both the kernel's (T*sub, 128) output and the
-    flat (P,) vectors the tap/PCF gathers consume — a (T, S=sub*128) shape
-    instead paid a 1.76 ms retiling copy per buffer (TPU (8,128) tiles of
-    [T, 4096] group 8 TILE rows, a different element order).
+    Every array keeps the pixel dims minor (vectors (3, R, 128), scalars
+    (1, R, 128) or (R, 128)), so the whole chain is elementwise over the
+    same layout and fuses.
     """
+    from arctic_tpu.ops.raster_tiles import pixel_block_centers
+
     atlas = buffers.atlas
     wp = gbuf[0:3]  # (3, R, 128)
     n_v = gbuf[3:6]
@@ -620,40 +484,21 @@ def shade_gbuffer(
     u_uv = gbuf[12]  # (R, 128)
     v_uv = gbuf[13]
 
-    # Gather hygiene: uncovered pixels carry all-zero G-buffer rows whose
-    # degenerate regions (h == w == 0) turn into garbage gather indices —
-    # random HBM rows that defeat the gather's cache locality. Point every
-    # unused lane at one constant row instead (their values are discarded by
-    # the covered select at the end).
-    u_uv = jnp.where(covered, u_uv, 0.0)
-    v_uv = jnp.where(covered, v_uv, 0.0)
-
     def reg_lane(lane, fallback):
+        # Uncovered pixels carry zero rows whose degenerate regions (h == w
+        # == 0) would make junk gather indices; point them at one row.
         return jnp.where(covered, gbuf[lane], fallback)
 
     def ch3(flat, base):  # (..., C) flat tap -> (3, R, 128)
         return jnp.stack([flat[..., base + i] for i in range(3)], axis=0)
 
-    # Per-pixel sky rays (used by the merged tap below and/or the final
-    # background composite). Covered pixels don't read the sky — give them
-    # one constant direction so their (discarded) taps hit a single row.
-    # Pixel-block layout: row r lane l = pixel 128 * r + l of tile r // sub.
+    # Per-pixel sky rays (for the merged tap below and/or the background
+    # composite). Covered pixels don't read the sky — give them one
+    # constant direction so their (discarded) taps hit a single row.
     r_rows, _ = covered.shape
-    tw, th = config.tile_w, config.tile_h
-    sub = th * tw // 128
-    r_idx = jnp.arange(r_rows, dtype=jnp.int32)[:, None]
-    lane = jnp.arange(128, dtype=jnp.int32)[None, :]
-    t_idx = r_idx // sub
-    # tile_w divides 128 (asserted in select_interp_tiles), so the pixel
-    # index factors into per-ROW and per-LANE terms: p % tw == lane % tw
-    # and p // tw == (r % sub) * (128 // tw) + lane // tw. The div/mod
-    # chains then run on (R, 1) and (1, 128) iotas instead of (R, 128).
-    px = ((t_idx % tiles_x) * tw + lane % tw).astype(jnp.float32) + 0.5
-    py = (
-        (tile_row0 + t_idx // tiles_x) * th
-        + (r_idx % sub) * (128 // tw)
-        + lane // tw
-    ).astype(jnp.float32) + 0.5
+    px, py = pixel_block_centers(
+        r_rows, tiles_x, config.tile_h, config.tile_w, tile_row0
+    )
     dx, dy, dz = sky.camera_ray_dirs_cf(
         params.camera, px, py, config.width, config.height
     )
@@ -661,20 +506,9 @@ def shade_gbuffer(
     dy = jnp.where(covered, 0.0, dy)
     dz = jnp.where(covered, 0.0, dz)
 
-    # Sun shadow term computed FIRST (the sun is orthographic so the
-    # interpolated light-space xyz needs no divide; care=covered —
-    # uncovered pixels' values are never consumed). Ordering matters on
-    # reference-scale texture scenes: the window LUT is cache-hot right
-    # after its build kernel writes it (docs/FLOORS.md cache model), and
-    # the tile-atlas tap's ~GB of gather traffic would evict it — the
-    # tile branch below ties its gather inputs on shadow_f so the PCF
-    # chain runs first. Values are unchanged (pure scheduling).
-    shadow_f, pcf_rows = shadow.pcf_shadow_proj(
-        shadow_map, gbuf[14], gbuf[15], gbuf[16], vma=vma,
-        care=covered, row_cap=config.pcf_row_cap, with_rows=True,
-        lut=sun_lut, pyramid=sun_pyr, lut_y_range=lut_y_range,
-        raw_flat=lut_raw, map_size=config.shadow_size,
-    )
+    # Sun shadow term: the sun is orthographic, so the interpolated
+    # light-space xyz needs no divide.
+    shadow_f = shadow.pcf_shadow_proj(shadow_map, gbuf[14], gbuf[15], gbuf[16])
 
     env_atlas = getattr(buffers.environment, "atlas", None)
     background = None
@@ -690,22 +524,13 @@ def shade_gbuffer(
         # (see io.build.build_tile_atlas) serves a covered pixel's 8
         # material channels, an uncovered pixel its env quad — the merged
         # texture+environment structure at ~24 B/texel instead of the quad
-        # scheme's ~96 (which blows the ~96 MB gather cliff and HBM at
-        # Khronos-Sponza texture loads).
+        # scheme's ~96.
         from arctic_tpu.ops.sampling import quad_index, tile_index, tile_tap_resolve
 
-        # Cache-ordering tie: the PCF window LUT is hot right after its
-        # build kernel writes it; this tap's ~GB of reference-scale gather
-        # traffic evicts it (PCF measured 11 ns/row when scheduled after —
-        # docs/FLOORS.md cache model). Gating the tap's inputs on shadow_f
-        # makes the whole PCF chain run first. Values unchanged.
-        def tie(a):
-            return jax.lax.optimization_barrier((a, shadow_f))[0]
-
-        u_sky, v_sky = sky.env_uv_cf(tie(dx), tie(dy), tie(dz))
+        u_sky, v_sky = sky.env_uv_cf(dx, dy, dz)
         trow, t_ty, t_tx, tfx, tfy = tile_index(
             reg_lane(43, 0.0), reg_lane(44, 1.0), reg_lane(45, 1.0),
-            reg_lane(46, 1.0), tie(u_uv), tie(v_uv),
+            reg_lane(46, 1.0), u_uv, v_uv,
         )
         ereg = env_atlas.regions[0, 0]
         eq, efx, efy = quad_index(
@@ -719,9 +544,9 @@ def shade_gbuffer(
             and config.tex_group_caps is not None
         )
         if grouped:
-            # Per-material-group compacted row gathers (config.tex_group_caps
-            # — see ops.sampling.tile_tap_resolve_grouped): bit-identical
-            # values, ~5x cheaper per row than the full-table gather.
+            # Opt-in per-material-group compacted row gathers
+            # (config.tex_group_caps — see ops.sampling.tile_tap_resolve_grouped):
+            # bit-identical values.
             from arctic_tpu.ops.sampling import (
                 tile_row_groups,
                 tile_tap_resolve_grouped,
@@ -736,27 +561,14 @@ def shade_gbuffer(
             out16, tex_fb_rows = tile_tap_resolve_grouped(
                 atlas.tiles, groups, caps, trow, covered, eq // 8,
                 gid_pix, g_lo, g_hi, many,
-                [t_ty, t_tx, eq % 8, tfx, tfy, efx, efy], vma=vma,
+                [t_ty, t_tx, eq % 8, tfx, tfy, efx, efy],
                 group_tables=atlas.tile_group_tables,
             )
         else:
-            tex_fb_rows = jnp.int32(0)
             idx = jnp.where(covered, trow, atlas.tiles_ntex + eq // 8)
-            shape = idx.shape
-            assert len(shape) == 2 and shape[1] == 128, shape
-            pn = shape[0] * 128
-            pad = -pn % 4096
-
-            def flp(a):
-                return jnp.pad(a.reshape(-1), (0, pad))
-
-            row = atlas.tiles[flp(idx)]  # (P + pad, 128) i32
             out16 = tile_tap_resolve(
-                row, flp(t_ty), flp(t_tx), flp(eq % 8),
-                flp(tfx), flp(tfy), flp(efx), flp(efy), vma=vma,
-            )  # (16, rows, 128) pixel-block planes
-            if pad:
-                out16 = out16[:, : shape[0]]
+                atlas.tiles[idx], t_ty, t_tx, eq % 8, tfx, tfy, efx, efy
+            )  # (16, R, 128)
         base_color = out16[0:3]
         nm = out16[3:6]
         mr_g = out16[6]
@@ -765,10 +577,9 @@ def shade_gbuffer(
     elif merged_env:
         # ONE gather serves texture AND sky: a covered pixel needs its
         # material quad, an uncovered one its environment quad — never
-        # both, so the two 2M-row gathers collapse into one against a
-        # concatenated [packed tex quads; packed env quads] table
-        # (gathers are row-count-bound; round-3 profile: 4.9 + 5.5 ms).
-        from arctic_tpu.ops.sampling import quad_index
+        # both, so the two gathers collapse into one against a concatenated
+        # [packed tex quads; packed env quads] table.
+        from arctic_tpu.ops.sampling import quad_index, tap_resolve
 
         u_sky, v_sky = sky.env_uv_cf(dx, dy, dz)
         tq, tfx, tfy = quad_index(
@@ -794,31 +605,9 @@ def shade_gbuffer(
             ntex = tex_rows.shape[0]
             merged = jnp.concatenate([tex_rows, env_atlas.quads_packed], axis=0)
         idx = jnp.where(covered, tq // per, ntex + eq // 8)
-        # One row gather, then a Pallas kernel does the per-pixel quad
-        # select + bilinear lerp in VMEM (the XLA form relayouted the
-        # (P, 128) rows pixel-minor — 1.66 ms — and ran the slice selects
-        # as strided fusions; arithmetic is identical, tests pin it).
-        shape = idx.shape
-        assert len(shape) == 2 and shape[1] == 128, shape
-        pn = shape[0] * 128
-        pad = -pn % 4096
-        row = merged[jnp.pad(idx.reshape(-1), (0, pad))]  # (P + pad, 128)
-        from arctic_tpu.ops.sampling import tap_resolve
-
         out16 = tap_resolve(
-            row,
-            jnp.pad((tq % per).reshape(-1), (0, pad)),
-            jnp.pad((eq % 8).reshape(-1), (0, pad)),
-            jnp.pad(tfx.reshape(-1), (0, pad)),
-            jnp.pad(tfy.reshape(-1), (0, pad)),
-            jnp.pad(efx.reshape(-1), (0, pad)),
-            jnp.pad(efy.reshape(-1), (0, pad)),
-            c4=c4,
-            vma=vma,
-        )  # (16, rows, 128) pixel-block channel planes (kernel-native
-        # layout — the old (16, P) form paid a 134 MB relayout, copy.307)
-        if pad:
-            out16 = out16[:, : shape[0]]
+            merged[idx], tq % per, eq % 8, tfx, tfy, efx, efy, c4=c4
+        )  # (16, R, 128)
         nch = c4 // 4
         background = out16[nch : nch + 3]
         slot_base = {s: 4 * i for i, s in enumerate(atlas.combined_slots)}
@@ -836,7 +625,7 @@ def shade_gbuffer(
             atlas.combined_quads, atlas.combined_block_grid,
             reg_lane(43, 0.0), reg_lane(44, 0.0), reg_lane(45, 1.0), reg_lane(46, 1.0),
             u_uv, v_uv,
-        )  # (T, S, 4 * n_slots)
+        )  # (R, 128, 4 * n_slots)
         slot_base = {s: 4 * i for i, s in enumerate(atlas.combined_slots)}
         base_color = ch3(tex, slot_base[0])
         nm = ch3(tex, slot_base[1]) if 1 in slot_base else None
@@ -864,7 +653,7 @@ def shade_gbuffer(
     if nm is None:
         nm = gbuf[40:43]
     if mr_g is None:
-        metalness = gbuf[38:39]  # mr const blue (1, T, S)
+        metalness = gbuf[38:39]  # mr const blue (1, R, 128)
         roughness = gbuf[37:38]  # mr const green
     else:
         metalness = mr_b[None]
@@ -876,9 +665,7 @@ def shade_gbuffer(
     n = t_v * nm[0:1] + b_v * nm[1:2] + n_v * nm[2:3]
     n = n / jnp.sqrt(jnp.sum(n * n, axis=0, keepdims=True))
 
-    # (shadow_f/pcf_rows computed above, before the texture taps —
-    # cache-ordering tie; see the comment there.)
-    lit = (1.0 - shadow_f)[None]  # (1, T, S)
+    lit = (1.0 - shadow_f)[None]  # (1, R, 128)
 
     eye = params.camera.eye
     wo = eye[:, None, None] - wp
@@ -920,14 +707,14 @@ def shade_gbuffer(
     if config.ibl_specular:
         # Opt-in IBL specular, channel-first (see core/config.py and the
         # deferred-path twin in shade()): F(n.wo, F0) * env(reflect(-wo, n)).
-        ndotwo = jnp.sum(n * wo, axis=0, keepdims=True)  # (1, T, S)
+        ndotwo = jnp.sum(n * wo, axis=0, keepdims=True)  # (1, R, 128)
         rx = 2.0 * ndotwo[0] * n[0] - wo[0]
         ry = 2.0 * ndotwo[0] * n[1] - wo[1]
         rz = 2.0 * ndotwo[0] * n[2] - wo[2]
         er, eg, eb = sky.sample_environment_ibl_cf(
             buffers.environment, rx, ry, rz
         )
-        env_c = jnp.stack([er, eg, eb], axis=0)  # (3, T, S)
+        env_c = jnp.stack([er, eg, eb], axis=0)  # (3, R, 128)
         f0 = 0.04 + (base_color - 0.04) * metalness
         f = pbr.fresnel_schlick(jnp.maximum(ndotwo, 0.0), f0)
         color = color + f * env_c
@@ -939,36 +726,29 @@ def shade_gbuffer(
             sky.sample_environment_cf(buffers.environment, dx, dy, dz), axis=0
         )
     out = jnp.where(covered[None], color, background)
-    return (out, pcf_rows, tex_fb_rows) if with_pcf_rows else out
+    return out, tex_fb_rows
 
 
 def build_sun_cache(
     buffers: SceneBuffers, params: SceneParams, config: RenderConfig
 ):
-    """Render the sun's shadow map and precompute its per-frame derivatives
-    (quantized window LUT + min/max pyramid) — everything in the frame that
-    depends only on (geometry, sun). Returns (SunCache, stats).
+    """Render the sun's shadow map — the part of the frame that depends only
+    on (geometry, sun). Returns (SunCache, stats).
 
-    Pass the cache to render_frame_stats to skip the whole shadow chain
-    while the sun and geometry are unchanged; re-run this when either is
-    edited (the viewer's sun-dirty flag, the CLI's --cache-sun orbit path).
-    The cached arrays are exactly what the in-frame build computes, so the
-    rendered pixels are unchanged.
+    Pass the cache to render_frame_stats to skip the shadow pass while the
+    sun and geometry are unchanged; re-run this when either is edited (the
+    viewer's sun-dirty flag, the CLI's --cache-sun orbit path). The cached
+    map renders the full frustum (no camera-dependent cull), so it stays
+    valid as the camera moves; sampled texels equal the culled in-frame
+    map's, and the rendered pixels are unchanged.
     """
     from arctic_tpu.core.scene import SunCache
 
     geom = buffers.geometry
     sun_pv = params.sun.proj_view()
     shadow_map, sh_pairs, sh_cap = shadow_pass(geom, sun_pv, config)
-    lutq, _ = shadow.build_window_lut_q(shadow_map)
-    # The min/max pyramid is consumed only by pcf_row_cap penumbra
-    # classification — with the cap off (the default) building it is dead
-    # work and dead SunCache bytes (VERDICT r4 weak #5).
-    pyr = None
-    if pcf_row_capacity(config) > 1:  # 1 == classification inactive
-        pyr, _ = shadow.build_shadow_pyramid(shadow_map)
     stats = {"shadow_pairs": sh_pairs, "shadow_pair_cap": jnp.int32(sh_cap)}
-    return SunCache(shadow_map=shadow_map, lutq=lutq, pyramid=pyr), stats
+    return SunCache(shadow_map=shadow_map), stats
 
 
 def make_sun_cache_builder(config: RenderConfig):
@@ -984,13 +764,14 @@ def render_frame_stats(
 ):
     """render_frame + raster health scalars.
 
-    stats: {"cam_pairs", "cam_pair_cap", "shadow_pairs", "shadow_pair_cap"} —
-    pairs > cap means the binning buffer overflowed and fragments were
-    DROPPED (the frame is visually incomplete). check_stats() makes that
-    loud; bench.py and the CLI call it every run.
+    stats: {"cam_pairs", "cam_pair_cap", "shadow_pairs", "shadow_pair_cap",
+    "tex_fb_rows", "tex_fb_cap"} — pairs > cap means the binning buffer
+    overflowed and fragments were DROPPED (the frame is visually
+    incomplete). check_stats() makes that loud; bench.py and the CLI call it
+    every run.
 
-    ``sun_cache`` (a build_sun_cache result) skips the shadow pass, LUT
-    build, and pyramid build; valid while sun + geometry are unchanged.
+    ``sun_cache`` (a build_sun_cache result) skips the shadow pass; valid
+    while sun + geometry are unchanged.
     """
     geom = buffers.geometry
     sun_pv = params.sun.proj_view()
@@ -998,63 +779,28 @@ def render_frame_stats(
     fused = config.fused_shade and not config.force_bruteforce
 
     # Tri-major world + sun-clip corners, computed once and shared by the
-    # shadow raster, the camera raster, and the shade-row build (the
-    # per-vertex formulation cost ~3 x 750k latency-bound gathers/frame).
+    # shadow raster, the camera raster, and the shade-row build.
     wc = world_corners(geom) if fused else None
     sun_clip = corners_clip(wc, sun_pv) if fused else None
 
     # named_scope = the frame graph's pass labels in HLO/profiler traces
     # (the Tracy zone analogue, SURVEY.md §5.1).
-    sun_lut = sun_pyr = lut_y_range = lut_raw = None
-    # Row-major shadow raster straight into the LUT build's input layout
-    # (shadow_pass lut_rows): only when this trace's PCF will take the
-    # quant-LUT path (same condition pcf_shadow_proj uses) and the shadow
-    # tiling matches the assembler's 64-px-pair scheme.
-    from arctic_tpu.ops import shadow as shadow_ops
-
-    use_lut_rows = (
-        fused
-        and sun_cache is None
-        and shadow_ops.PCF_QUANT
-        and (jax.default_backend() == "tpu" or config.pcf_row_cap is not None)
-        and config.shadow_tile == 64
-        and config.tiles_per_step % 2 == 0
-    )
     with jax.named_scope("shadow_pass"):
         if sun_cache is None:
             cull_rect = None
             if config.sun_frustum_cull and fused:
                 tri_valid0 = jnp.arange(geom.capacity) < geom.num_tris
-                cull_rect, y_band = sun_cull_rect(
-                    wc, tri_valid0, cam_pv, sun_pv, config, with_y_band=True
-                )
-                if config.lut_y_skip:
-                    # Bound on every covered pixel's PCF window start_y —
-                    # the in-frame LUT build skips 48-row steps outside it
-                    # (build_window_lut_q y_range). Tighter than the tile
-                    # rect: the wrap extension widens the rect at map edges
-                    # but never the consumed start_y range.
-                    lut_y_range = jnp.stack(y_band).astype(jnp.int32)
-            if use_lut_rows:
-                lut_raw, sh_pairs, sh_cap = shadow_pass(
-                    geom, sun_pv, config, sun_clip=sun_clip,
-                    cull_rect=cull_rect, lut_rows=True,
-                )
-                shadow_map = None
-            else:
-                shadow_map, sh_pairs, sh_cap = shadow_pass(
-                    geom, sun_pv, config, sun_clip=sun_clip,
-                    cull_rect=cull_rect,
-                )
+                cull_rect = sun_cull_rect(wc, tri_valid0, cam_pv, sun_pv, config)
+            shadow_map, sh_pairs, sh_cap = shadow_pass(
+                geom, sun_pv, config, sun_clip=sun_clip, cull_rect=cull_rect,
+            )
         else:
             shadow_map = sun_cache.shadow_map
-            sun_lut, sun_pyr = sun_cache.lutq, sun_cache.pyramid
             sh_pairs, sh_cap = jnp.int32(0), 1  # can't overflow (cached)
 
     if fused:
-        # Fused path: raster -> in-kernel select+interp (zero per-pixel
-        # gathers for shading inputs) -> tile-major shading; only the final
-        # u8 frame is untiled.
+        # Fused path: tiled raster -> per-pixel G-buffer resolve ->
+        # tile-major shading; only the final u8 frame is untiled.
         from arctic_tpu.ops import raster_tiles
 
         with jax.named_scope("forward_visibility"):
@@ -1067,24 +813,14 @@ def render_frame_stats(
                 setup, geom, sun_pv, wc=wc,
                 lsp=tuple(c[:3] for c in sun_clip),
             )
-            # Materialization fence: without it XLA fuses the row-table
-            # concat into the 600k-row alignment gather's consumer, and the
-            # full-frame program runs ~2x slower than the stages do in
-            # isolation (measured 713 ms vs 344 ms stage sum).
-            if FENCE_SHADE_ROWS:
-                shade_rows = jax.lax.optimization_barrier(shade_rows)
-            ibuf_tiles, gbuf, cam_pairs = raster_tiles.raster_gbuffer(
+            ibuf_rows, gbuf, cam_pairs = raster_tiles.raster_gbuffer(
                 setup, shade_rows, config.height, config.width, config
             )
-            if FENCE_GBUF:
-                ibuf_tiles, gbuf = jax.lax.optimization_barrier((ibuf_tiles, gbuf))
         cam_cap = config.pair_capacity(setup.capacity)
         with jax.named_scope("forward_shade_skybox"):
-            hdr, pcf_rows, tex_fb_rows = shade_gbuffer(
-                buffers, params, gbuf, ibuf_tiles >= 0, shadow_map, config,
-                tiles_x=config.tiles_x, with_pcf_rows=True,
-                sun_lut=sun_lut, sun_pyr=sun_pyr, lut_y_range=lut_y_range,
-                lut_raw=lut_raw,
+            hdr, tex_fb_rows = shade_gbuffer(
+                buffers, params, gbuf, ibuf_rows >= 0, shadow_map, config,
+                tiles_x=config.tiles_x,
             )
     else:
         world = vertex_world_positions(geom)
@@ -1094,7 +830,6 @@ def render_frame_stats(
             )
         with jax.named_scope("forward_shade_skybox"):
             hdr = shade(buffers, params, setup, ibuf, world, shadow_map, sun_pv, config)
-        pcf_rows = jnp.int32(0)  # classification is a fused-path feature
         tex_fb_rows = jnp.int32(0)
 
     with jax.named_scope("post_process"):
@@ -1120,21 +855,10 @@ def render_frame_stats(
         "cam_pair_cap": jnp.int32(cam_cap),
         "shadow_pairs": sh_pairs,
         "shadow_pair_cap": jnp.int32(sh_cap),
-        "pcf_rows": pcf_rows,
-        "pcf_row_cap": jnp.int32(pcf_row_capacity(config)),
         "tex_fb_rows": tex_fb_rows,
         "tex_fb_cap": jnp.int32(tex_fb_capacity(buffers, config)),
     }
     return img, stats
-
-
-def pcf_row_capacity(config: RenderConfig) -> int:
-    """The compiled penumbra-row capacity for this config (1 = inactive —
-    pcf_rows is then always 0, mirroring the brute-force pair-cap report)."""
-    if config.pcf_row_cap is None or not config.fused_shade or config.force_bruteforce:
-        return 1
-    pn = config.num_tiles * config.tile_h * config.tile_w
-    return shadow.effective_row_cap(pn, config.pcf_row_cap)
 
 
 def tex_fb_capacity(buffers: SceneBuffers, config: RenderConfig) -> int:
@@ -1165,15 +889,6 @@ def check_stats(stats) -> None:
                 f"({pairs} pairs > capacity {cap}): fragments were dropped and "
                 f"the frame is incomplete. Raise RenderConfig.pairs_per_tri / "
                 f"pair_reserve."
-            )
-    if "pcf_rows" in stats:
-        rows = int(stats["pcf_rows"])
-        cap = int(stats["pcf_row_cap"])
-        if rows > cap:
-            raise RenderError(
-                f"PCF penumbra rows overflowed the compaction buffer "
-                f"({rows} rows > capacity {cap}): overflowing rows got another "
-                f"row's shadow values. Raise RenderConfig.pcf_row_cap."
             )
     if "tex_fb_rows" in stats:
         rows = int(stats["tex_fb_rows"])
@@ -1434,7 +1149,7 @@ def render_frame(
     config: RenderConfig,
     sun_cache=None,
 ) -> Array:
-    """Full frame -> (H, W, 3) uint8. The TPU analogue of
+    """Full frame -> (H, W, 3) uint8. The analogue of
     Renderer::render_frame (renderer.cpp:274-415), one XLA program."""
     img, _ = render_frame_stats(buffers, params, settings, config, sun_cache)
     return img
@@ -1452,7 +1167,7 @@ def make_renderer_stats(config: RenderConfig):
 
 def make_cached_renderer_stats(config: RenderConfig):
     """Frame function taking a SunCache (see build_sun_cache): the per-frame
-    program contains NO shadow raster / LUT build — the camera-motion path
+    program contains NO shadow raster — the camera-motion path
     of an interactive session with a stationary sun."""
 
     def f(buffers, params, settings, sun_cache):

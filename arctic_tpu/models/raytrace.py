@@ -71,7 +71,7 @@ def render_frame_rt(
     btn = maths.normalize(geom.bitangents)
     attrs = jnp.concatenate([world, nrm, tan, btn, geom.uvs], axis=1)  # (V, 14)
     av = attrs[geom.indices[tri]]  # (H, W, 3, 14)
-    a = jnp.einsum("hwc,hwck->hwk", b, av)
+    a = jnp.einsum("hwc,hwck->hwk", b, av, precision=jax.lax.Precision.HIGHEST)
     wp, n_v, t_v, b_v, uv = a[..., :3], a[..., 3:6], a[..., 6:9], a[..., 9:12], a[..., 12:14]
 
     regions = buffers.atlas.regions[geom.tri_material[tri]]  # (H, W, 3, 4)

@@ -27,58 +27,10 @@ from arctic_tpu.ops.raster import TriSetup
 Array = jnp.ndarray
 
 
-CUMMAX_ASSOC = False  # associative_scan variant (measured: no win in-pipeline)
-
-
-def _cummax(x):
-    if CUMMAX_ASSOC:
-        return jax.lax.associative_scan(jnp.maximum, x)
-    return jax.lax.cummax(x)
-
-
 class BinnedPairs(NamedTuple):
     sorted_slot: Array  # (pair_cap,) i32 slot id per pair, grouped by tile
     tile_start: Array  # (num_tiles + 1,) i32 segment offsets into sorted_slot
     total_pairs: Array  # i32 scalar — actual pairs generated (for overflow checks)
-
-
-class AlignedSegments(NamedTuple):
-    """Per-tile work lists re-laid-out so every segment starts 8-row aligned.
-
-    TPU DMA slices must be full-lane: the kernel's triangle table is stored
-    as (rows/8, 128) f32 (8 logical 16-float rows per lane row), so segment
-    starts are padded to multiples of 8. ``slot`` indexes an (extended) slot
-    table whose last entry is a dead row for the padding."""
-
-    slot: Array  # (cap_aligned,) i32
-    seg_start: Array  # (num_tiles,) i32, 8-aligned row offsets
-    seg_len: Array  # (num_tiles,) i32 true (unpadded) lengths
-
-
-def align_segments(pairs: BinnedPairs, num_tiles: int, dead_slot: int, align: int = 8) -> AlignedSegments:
-    pair_cap = pairs.sorted_slot.shape[0]
-    seg_len = jnp.diff(pairs.tile_start)  # (num_tiles,)
-    padded = (seg_len + (align - 1)) // align * align
-    astart = jnp.concatenate([jnp.zeros(1, jnp.int32), jnp.cumsum(padded, dtype=jnp.int32)])
-    cap_aligned = pair_cap + align * num_tiles
-    pos = jnp.arange(cap_aligned, dtype=jnp.int32)
-
-    # Monotone per-position quantities via ONE scatter-max + cummax: both
-    # aligned-start - original-start and the segment-end positions are
-    # non-decreasing over tiles, so they ride one scatter op as a 2-wide
-    # update row (scatters are latency-bound per UPDATE, ~9 ns — two
-    # separate scatters paid that twice per pass).
-    at = jnp.clip(astart[:-1], 0, cap_aligned)
-    upd = jnp.stack([astart[:-1] - pairs.tile_start[:-1], pairs.tile_start[1:]], axis=1)
-    both0 = jnp.zeros((cap_aligned + 1, 2), jnp.int32).at[at].max(upd)
-    both = jax.lax.cummax(both0[:cap_aligned], axis=0)
-    delta = both[:, 0]  # astart[t] - tile_start[t]
-    end = both[:, 1]  # tile_start[t + 1]
-
-    src = pos - delta
-    ok = src < end
-    slot = jnp.where(ok, pairs.sorted_slot[jnp.clip(src, 0, pair_cap - 1)], dead_slot)
-    return AlignedSegments(slot=slot, seg_start=astart[:-1], seg_len=seg_len)
 
 
 def _tile_footprints(
@@ -171,10 +123,9 @@ def bin_triangles(
     )
 
     # Expansion without per-pair binary search: pair -> slot is a TWO-LEVEL
-    # run-length decode. Scatters are latency-bound at ~9 ns/UPDATE, so the
-    # round-2 per-slot scatter paid 9 ns x slot CAPACITY (~4.4 ms per pass
-    # at 503k slots). Level 1 scatters only per GROUP of slots (~8k
-    # updates): group ends -> cummax recovers each pair's group and the
+    # run-length decode. Level 1 scatters only per GROUP of slots (one
+    # update per G slots instead of one per slot): group ends -> cummax
+    # recovers each pair's group and the
     # group's first pair position. Level 2 resolves the slot within the
     # group from ONE dense 128-lane row per group (consecutive pairs repeat
     # rows, so the gather runs at cache speed): lanes [0:G) carry the
@@ -182,9 +133,7 @@ def bin_triangles(
     # slot = #{local cums <= off} and the slot's local start) and lanes
     # [G:2G) the packed bbox META of the group's G slots, resolved by a
     # lane one-hot at slot_local — G = 64 so both halves share one row and
-    # one gather (separate 128-lane loc/meta gathers + a split select
-    # fusion cost ~2x: r3h per-HLO 0.59 + 0.88 + 0.59 ms on the shadow
-    # pass; the scalar meta[slot] form before that, ~7 ns/pair, 2.34 ms).
+    # one gather.
     G = 64
     cap = setup.capacity
     cum = jnp.cumsum(counts, dtype=jnp.int32)  # inclusive
@@ -210,7 +159,7 @@ def bin_triangles(
         m0 = m0.at[at].max(
             (jnp.arange(n_groups, dtype=jnp.int32) << pos_bits) | at
         )
-        mm = _cummax(m0[:pair_capacity])
+        mm = jax.lax.cummax(m0[:pair_capacity])
         group = (mm >> pos_bits) + 1  # arithmetic shift: -1 -> 0
         gbase = jnp.where(mm < 0, 0, mm & ((1 << pos_bits) - 1))
     else:  # huge buffers: fall back to two scans
@@ -219,8 +168,8 @@ def bin_triangles(
             jnp.arange(n_groups, dtype=jnp.int32)
         )
         mm = m0[:pair_capacity]
-        group = _cummax(mm) + 1  # group containing pair `pos`
-        gbase = _cummax(jnp.where(mm >= 0, pos, 0))  # group's first pair
+        group = jax.lax.cummax(mm) + 1  # group containing pair `pos`
+        gbase = jax.lax.cummax(jnp.where(mm >= 0, pos, 0))  # group's first pair
     off = pos - gbase  # pair offset within the group
 
     # Combined group rows: lanes [0:G) local cumsum, [G:2G) packed bbox
@@ -240,8 +189,7 @@ def bin_triangles(
     # lane to select (lane slot_local = popcount(le)) is the FIRST 0 lane —
     # expressible as le[k-1] & ~le[k] WITHOUT the popcount, which breaks the
     # reduce -> one-hot dependency and lets XLA fuse all three lane reduces
-    # into ONE pass over the (cap, 128) rows (the split form re-read the
-    # 168 MB buffer twice: 0.44 + 0.34 ms at the bench shadow cap).
+    # into ONE pass over the (cap, 128) rows.
     le_sh = jnp.concatenate([jnp.ones_like(le[:, :1]), le[:, :-1]], axis=1)
     sel = le_sh & ~le  # one-hot at lane slot_local (all-zero iff le all-1s)
     slot_local = jnp.sum(le, axis=1, dtype=jnp.int32)
@@ -267,8 +215,7 @@ def bin_triangles(
         # slot-ascending order, so the stable-by-tile sort's within-tile
         # order IS slot-ascending — the packed key reproduces it exactly
         # while sorting one array instead of three (XLA adds an iota
-        # operand for stability; measured 0.45 ms for the 3-array form at
-        # the 327680 bench cap).
+        # operand for stability).
         packed = (tile << bits_s) | slot_c
         sp = jax.lax.sort(packed)
         sorted_tile = sp >> bits_s
@@ -285,8 +232,7 @@ def _tile_starts(sorted_tile: Array, num_tiles: int) -> Array:
     """searchsorted(sorted_tile, arange(num_tiles + 1), 'left'), two-level.
 
     The flat jnp.searchsorted lowers to a log2(pair_cap)-iteration while
-    loop (19 gather+compare rounds at the bench caps, each latency/dispatch
-    bound — ~1.1 ms/frame across both passes). Two levels cut the serial
+    loop of dependent gather+compare rounds. Two levels cut the serial
     depth: a coarse searchsorted over the 128-strided row heads (a tiny
     array, log2(cap / 128) rounds), then ONE dense (Q, 128) row gather +
     lane reduce resolves the exact offset. Correctness: with r =
@@ -303,9 +249,8 @@ def _tile_starts(sorted_tile: Array, num_tiles: int) -> Array:
     t = jnp.arange(num_tiles + 1, dtype=jnp.int32)
     # coarse[t] = #{row heads < t}: the queries are EVERY tile id in order,
     # so searchsorted collapses to a histogram + exclusive cumsum (head
-    # values are in [0, num_tiles]). The log2(rows)-iteration searchsorted
-    # while-loop was latency-bound at ~0.7 ms/frame across both passes; the
-    # scatter is ~9 ns x rows.
+    # values are in [0, num_tiles]) instead of a log2(rows)-iteration
+    # while loop.
     hist = jnp.zeros(num_tiles + 1, jnp.int32).at[view[:, 0]].add(
         1, mode="drop", indices_are_sorted=True
     )
@@ -316,49 +261,3 @@ def _tile_starts(sorted_tile: Array, num_tiles: int) -> Array:
     rows = view[r]  # (Q, 128) — dense row gather from a <=2 MB table
     cnt = jnp.sum((rows < t[:, None]).astype(jnp.int32), axis=1)
     return 128 * r + cnt
-
-
-def raster_row_comps(setup: TriSetup):
-    """The 16 dense (P' + pad,) component planes of pack_raster_rows,
-    padded with dead rows (zero planes, masked by the kernel's range
-    checks) to a multiple of 8 past the one dead slot at row P'.
-
-    Feeds raster_tiles.pack_raster_rows_packed, which writes the packed
-    (rows/8, 128) gather table directly (no column-major intermediate)."""
-    p = setup.capacity
-    assert p < (1 << 24), "slot ids must be exactly representable in f32"
-    comps = [c for e in setup.edges for c in e]  # A0 B0 C0 A1 ... C2
-    comps += list(setup.zplane)
-    comps.append(jnp.arange(p, dtype=jnp.float32))
-    z = jnp.zeros((p,), jnp.float32)
-    comps += [z, z, z]
-    # Pad slots to a 4096 multiple so the packed table has a 512-multiple
-    # row count (the transpose-pack kernel's block size); covers the one
-    # dead slot at row P'. Extra dead rows cost 64 B each.
-    n_pad = -(p + 1) % 4096 + 1
-    return [jnp.pad(c, (0, n_pad)) for c in comps], p + n_pad
-
-
-def pack_raster_rows(setup: TriSetup) -> Array:
-    """Per-slot kernel rows (P + pad, 16) f32, with one trailing dead row.
-
-    Layout: [A0 B0 C0  A1 B1 C1  A2 B2 C2  Az Bz Cz  slot_f32 0 0 0] where
-    slot_f32 is the slot id as an exact f32 value (slot counts stay far below
-    2^24; Mosaic has no scalar bitcast, so value-encoding beats bit-punning).
-    Row P is the dead row used for segment-alignment padding; total rows are
-    padded to a multiple of 8 so the table reshapes to (rows/8, 128) for
-    full-lane TPU DMA.
-    """
-    p = setup.capacity
-    assert p < (1 << 24), "slot ids must be exactly representable in f32"
-    comps = [c for e in setup.edges for c in e]  # A0 B0 C0 A1 ... C2
-    comps += list(setup.zplane)
-    comps.append(jnp.arange(p, dtype=jnp.float32))
-    z = jnp.zeros((p,), jnp.float32)
-    comps += [z, z, z]
-    # Dense (P,) components stack straight into the row table — XLA fuses
-    # the component math into this concat, so no tile-padded small-minor
-    # intermediates are ever materialized.
-    rows = jnp.stack(comps, axis=1)
-    n_pad = (-(p + 1)) % 8 + 1
-    return jnp.pad(rows, ((0, n_pad), (0, 0)))

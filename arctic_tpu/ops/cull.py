@@ -11,8 +11,7 @@ the light-space bounds of frustum ∩ AABB are never read: the shadow
 pass can skip tiles outside that rect and the rendered frame stays
 BIT-IDENTICAL (in-rect tiles receive exactly the same pair lists in the
 same order; the reference renders the full map every frame,
-shadow_map_pass.cpp — this is a pure TPU-side work reduction, applied
-per frame where the reference's hardware rasterizer is free).
+shadow_map_pass.cpp — this is a pure work reduction, applied per frame).
 
 The bound must CONTAIN the intersection; it need not be tight. The
 vertex set of the intersection of two convex bodies is
@@ -62,8 +61,7 @@ def aabb_corners(lo: Array, hi: Array) -> Array:
 def _inv4(m: Array) -> Array:
     """Closed-form 4x4 inverse (cofactors of 2x2 subdeterminants).
 
-    jnp.linalg.solve/inv lower to an LU custom call whose TPU compile is
-    pathologically slow inside a large frame program; this is ~60 scalar
+    jnp.linalg.solve/inv lower to an LU custom call; this is ~60 scalar
     fusable ops. f32 error is absorbed by the caller's texel margin.
     """
     a = [[m[i, j] for j in range(4)] for i in range(4)]
@@ -114,10 +112,10 @@ def frustum_corners_world(cam_pv: Array) -> Array:
         jnp.asarray([-1.0, -1.0, 0.0]), jnp.asarray([1.0, 1.0, 1.0])
     )  # (8, 3)
     clip = jnp.concatenate([ndc, jnp.ones((8, 1), jnp.float32)], axis=1)
-    # precision=HIGHEST everywhere in this module: TPU matmuls default to
-    # bf16, and the near/far-conditioned inverse has entries spanning ~5
-    # orders of magnitude — bf16 corners land wildly off (measured: the
-    # default-camera rect came out EMPTY on TPU while exact on CPU).
+    # precision=HIGHEST everywhere in this module: an f32 contraction may
+    # otherwise run at reduced precision (TF32 on the GPU), and the
+    # near/far-conditioned inverse has entries spanning ~5 orders of
+    # magnitude — reduced-precision corners land far off.
     h = jnp.einsum(
         "nk,mk->nm", clip, _inv4(cam_pv.astype(jnp.float32)), precision=_prec()
     )  # (8, 4)
@@ -208,7 +206,6 @@ def shadow_cull_rect(
     tile_h: int,
     tile_w: int,
     margin_texels: float | None = None,
-    with_y_band: bool = False,
 ):
     """Conservative shadow-map TILE rect (tx0, ty0, tx1, ty1) that covers
     every texel the PCF window of any shaded pixel can read.
@@ -217,14 +214,6 @@ def shadow_cull_rect(
     tiles culled — nothing on screen samples the map). margin_texels
     defaults to the PCF reach (0.0002 UV x size) + bilinear + slack for
     the f32 corner math.
-
-    ``with_y_band``: also return (y_lo, y_hi) i32 — an inclusive bound on
-    every consumed pixel's PCF window start_y (shadow.pcf_shadow_proj
-    padded-coords origin), for build_window_lut_q's y-skip. Derived from
-    the UNEXTENDED continuous bounds: edge-wrapping windows' start_y stays
-    in-band (the wrapped texels live in the first/last LUT step's slab
-    rows, not in extra steps), so the band stays tight when the rect
-    touches a map edge and the wrap extension below widens the tile rect.
     """
     if margin_texels is None:
         margin_texels = 0.0002 * shadow_size + 8.0
@@ -263,10 +252,4 @@ def shadow_cull_rect(
     any_ok = jnp.any(ok)
     tx1 = jnp.where(any_ok & (px_hi >= px_lo), tx1, -1)
     ty1 = jnp.where(any_ok & (py_hi >= py_lo), ty1, -1)
-    if not with_y_band:
-        return tx0, ty0, tx1, ty1
-    # Consumed start_y = clip(floor(py - 0.5) + 1, 0, s) is within
-    # [py - 1.5, py + 1]; py_lo/py_hi already carry margin_texels slack.
-    y_lo = jnp.clip(jnp.floor(py_lo - 1.5), 0.0, s).astype(jnp.int32)
-    y_hi = jnp.clip(jnp.ceil(py_hi + 1.0), 0.0, s).astype(jnp.int32)
-    return (tx0, ty0, tx1, ty1), (y_lo, y_hi)
+    return tx0, ty0, tx1, ty1

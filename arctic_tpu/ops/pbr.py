@@ -85,12 +85,10 @@ def outgoing_radiance(
 # Channel-first variants (vectors (3, T, S), scalars (1, T, S) or broadcast)
 # ---------------------------------------------------------------------------
 # Same math as above, with the channel axis LEADING so the pixel axes stay
-# minor and per-channel planes are contiguous slices. On TPU, XLA assigns
-# pathological layouts (and ~200 ms/frame of layout copies at 1080p) to
-# channel-LAST (..., pixels, 3) elementwise chains at loop/cond boundaries;
-# channel-leading shapes match the select kernel's lane-major G-buffer
-# physical layout, so the fused shading path never pays a relayout. Used by
-# the fused tile-major shading path (pipeline.shade_gbuffer).
+# minor and per-channel planes are contiguous slices; channel-leading
+# shapes match the G-buffer's (lanes, R, 128) layout, so the shading chain
+# needs no relayout. Used by the fused tile-major shading path
+# (pipeline.shade_gbuffer).
 
 
 def _dot_cf(a: Array, b: Array) -> Array:

@@ -1,19 +1,20 @@
-"""Triangle setup + rasterization for TPU.
+"""Triangle setup + rasterization as dataflow.
 
 The reference leans on D3D12's hardware rasterizer (vertex shader in
 shaders/depth.hlsl + shaders/forward.hlsl:50-66, fixed-function raster).
-TPUs have no ROPs and no efficient scatter, so rasterization is reformulated
-as dataflow:
+JAX cannot reach a GPU's fixed-function rasterizer, so rasterization is
+reformulated in software:
 
     clip-space verts -> near-plane clip (static 2T slots)
                      -> screen-space triangle setup (edge + depth planes)
                      -> depth test as a masked min-reduce over triangles
                      -> visibility buffer (z, slot id) per pixel
 
-Edge functions are *linear* in pixel coordinates, so evaluating a block of
-pixels against a block of triangles is a matmul — that observation drives both
-the brute-force rasterizer here (tests / small frames) and the tiled Pallas
-kernel (ops/raster_tiles.py).
+Edge functions are *linear* in pixel coordinates, so a block of pixels is
+tested against a triangle with three multiply-adds per edge — the
+brute-force rasterizer here (tests / small frames, the reference the tiled
+kernel is checked against) and the tiled Pallas kernel (ops/raster_tiles.py)
+evaluate the same expressions in the same order.
 
 D3D conventions reproduced:
 - viewport transform with y flip, pixel centers at +0.5 (D3D11.3 spec §3.3)
@@ -64,10 +65,8 @@ class ClippedTris:
     """Output of near-plane clipping: 2 static slots per input triangle.
 
     COMPONENT LAYOUT: every per-slot quantity is a plain dense (P,) array
-    (nested tuples index [corner] / [corner][orig_vertex]). Small-minor
-    arrays like (P, 3, 4) are tile-padded by XLA ((3, 4) -> (8, 128), 10-40x
-    memory), which made the whole setup chain HBM-bound; components keep it
-    at true size and let every consumer fuse.
+    (nested tuples index [corner] / [corner][orig_vertex]): every consumer
+    reads dense planes and fuses.
 
     ``cb[c][k]`` gives the barycentric weight of clipped-triangle corner
     ``c`` over original-triangle vertex ``k`` — clip space is linear in
@@ -111,8 +110,8 @@ def near_clip_corners(corners, tri_valid: Array) -> ClippedTris:
 
     ``corners[c] = (x, y, z, w)`` of (T,) arrays. The hot path computes
     these directly from precomputed tri-major world corners
-    (pipeline.world_corners) — the per-vertex formulation costs 3T
-    latency-bound row gathers per pass (~10 ms/frame at 250k tris)."""
+    (pipeline.world_corners) — the per-vertex formulation costs 3T row
+    gathers per pass."""
     tcount = tri_valid.shape[0]
     inside = [corners[c][2] >= 0.0 for c in range(3)]
     code = (
@@ -124,8 +123,7 @@ def near_clip_corners(corners, tri_valid: Array) -> ClippedTris:
     nout = jnp.where(tri_valid, _CLIP_NOUT[code], 0)
 
     # Rotate vertices so inside ones come first (cyclic: winding preserved).
-    # Branch-free 3-way selects: the obvious take_along_axis gathers cost
-    # ~60 ms/frame on TPU, selects are plain VPU ops.
+    # Branch-free 3-way selects instead of take_along_axis gathers.
     def pick(cidx):
         i = (cidx + rot) % 3
         m0 = i == 0
@@ -239,9 +237,6 @@ class TriSetup:
         return jnp.stack(
             [jnp.stack(list(e), axis=-1) for e in self.edges], axis=1
         )
-
-    def zplane_arr(self) -> Array:  # (P, 3)
-        return jnp.stack(list(self.zplane), axis=-1)
 
     def w_arr(self) -> Array:  # (P, 3)
         return jnp.stack(list(self.w), axis=-1)
@@ -386,26 +381,28 @@ def rasterize_bruteforce(
     """
     cap = setup.capacity
     pad = (-cap) % chunk
-    edges = jnp.pad(setup.edges_arr(), ((0, pad), (0, 0), (0, 0)))
-    edges = edges.at[cap:, :, 2].set(DEAD_C) if pad else edges
-    zplane = jnp.pad(setup.zplane_arr(), ((0, pad), (0, 0)))
+    comps = [c for e in setup.edges for c in e] + list(setup.zplane)
+    planes = jnp.pad(jnp.stack(comps, axis=1), ((0, pad), (0, 0)))  # (P', 12)
+    if pad:
+        # Dead padding slots: every edge test fails.
+        planes = planes.at[cap:, 2].set(DEAD_C)
     n_chunks = (cap + pad) // chunk
 
     px, py = _pixel_centers(height, width, y_offset)
-    pix = jnp.stack([px.ravel(), py.ravel(), jnp.ones_like(px).ravel()], axis=1)
-
-    edges_c = edges.reshape(n_chunks, chunk, 3, 3)
-    zplane_c = zplane.reshape(n_chunks, chunk, 3)
+    px = px.reshape(-1, 1)
+    py = py.reshape(-1, 1)
 
     def body(carry, inputs):
         zbuf, ibuf = carry
-        e, zp, base = inputs
-        # (HW, 3) @ (3, chunk*3) — edge functions for the whole chunk.
-        ev = jnp.matmul(
-            pix, e.reshape(chunk * 3, 3).T, precision=jax.lax.Precision.HIGHEST
-        ).reshape(-1, chunk, 3)
-        inside = jnp.all(ev >= 0.0, axis=-1)  # (HW, chunk)
-        zv = jnp.matmul(pix, zp.T, precision=jax.lax.Precision.HIGHEST)
+        pl, base = inputs  # (chunk, 12)
+
+        def plane(j):  # edge/depth plane j evaluated at every pixel (HW, chunk)
+            return pl[:, 3 * j] * px + pl[:, 3 * j + 1] * py + pl[:, 3 * j + 2]
+
+        # Elementwise in the tiled kernel's exact expression order, so both
+        # rasterizers round identically.
+        inside = (plane(0) >= 0.0) & (plane(1) >= 0.0) & (plane(2) >= 0.0)
+        zv = plane(3)
         zv = jnp.where(inside & (zv >= 0.0) & (zv <= 1.0), zv, jnp.inf)
         k = jnp.argmin(zv, axis=1)
         zmin = jnp.take_along_axis(zv, k[:, None], axis=1)[:, 0]
@@ -414,14 +411,11 @@ def rasterize_bruteforce(
         ibuf = jnp.where(upd, base + k.astype(jnp.int32), ibuf)
         return (zbuf, ibuf), None
 
-    # Seed the carries from y_offset so they inherit its device-varyingness
-    # under shard_map (a replicated carry + varying scan inputs is a vma
-    # type error; this is axis-name agnostic).
-    vary = jnp.asarray(y_offset, jnp.float32) * 0.0
-    zbuf0 = jnp.ones((height * width,), jnp.float32) + vary
-    ibuf0 = jnp.full((height * width,), -1, jnp.int32) + vary.astype(jnp.int32)
+    zbuf0 = jnp.ones((height * width,), jnp.float32)
+    ibuf0 = jnp.full((height * width,), -1, jnp.int32)
     bases = jnp.arange(n_chunks, dtype=jnp.int32) * chunk
-    (zbuf, ibuf), _ = jax.lax.scan(body, (zbuf0, ibuf0), (edges_c, zplane_c, bases))
+    planes_c = planes.reshape(n_chunks, chunk, 12)
+    (zbuf, ibuf), _ = jax.lax.scan(body, (zbuf0, ibuf0), (planes_c, bases))
     return zbuf.reshape(height, width), ibuf.reshape(height, width)
 
 
@@ -451,7 +445,7 @@ def pixel_barycentrics(
     ev = e[..., 0] * px[..., None] + e[..., 1] * py[..., None] + e[..., 2]
     b_screen = ev * inv_a[..., None]  # (H, W, 3) affine barycentrics
     bw = b_screen / w  # perspective weights over clipped corners
-    b_orig = jnp.einsum("hwc,hwci->hwi", bw, cb)
+    b_orig = jnp.einsum("hwc,hwci->hwi", bw, cb, precision=jax.lax.Precision.HIGHEST)
     denom = jnp.sum(b_orig, axis=-1, keepdims=True)
     b_orig = b_orig / jnp.where(denom == 0, 1.0, denom)
     return b_orig, covered
@@ -469,4 +463,4 @@ def interpolate(
     tri = setup.orig_tri[slot]  # (H, W)
     vidx = indices[tri]  # (H, W, 3)
     av = attrs[vidx]  # (H, W, 3, C)
-    return jnp.einsum("hwi,hwic->hwc", bary, av)
+    return jnp.einsum("hwi,hwic->hwc", bary, av, precision=jax.lax.Precision.HIGHEST)

@@ -1,15 +1,20 @@
-"""Tiled Pallas rasterizer — the TPU's "hardware rasterizer".
+"""Tiled rasterizer: one Pallas program per screen tile.
 
-Consumes the per-tile work lists from ops/binning.py and runs one grid step
-per screen tile: triangle rows are DMA'd HBM->SMEM in double-buffered chunks
-while the VPU evaluates edge/depth planes for the whole (tile_h x tile_w)
-pixel block per triangle and maintains the z/visibility buffers in VMEM.
-Depth semantics match the brute-force rasterizer exactly (LESS + draw-order
-ties), which is what the equivalence tests assert.
+Consumes the per-tile work lists from ops/binning.py. Each program loads its
+tile's segment of the sorted (tile, triangle) pair list, walks it in draw
+order, and keeps the tile's depth and winning slot id in registers; the
+tile is written once at the end. This is the software-rasterizer shape of
+GPU renderers without a fixed-function unit: binned tiles, one block per
+tile, triangle planes read from an L2-resident table.
+
+Depth semantics match the brute-force rasterizer exactly (LESS with a
+strict ``<`` so draw order breaks ties, the same plane arithmetic), which
+is what the equivalence tests and the chip check assert.
 
 Pixel layout: each tile's pixels are flattened row-major into an
-(S=tile_h*tile_w/128, 128) block; the host-side unshuffle at the end restores
-(H, W). This keeps every VPU op fully lane-aligned regardless of tile shape.
+(S = tile_h * tile_w / 128, 128) block; ``_untile`` restores (H, W). The
+shading chain keeps this tile-major "pixel-block" layout end to end and
+untiles only the final u8 frame.
 """
 
 from __future__ import annotations
@@ -20,509 +25,94 @@ from typing import Tuple
 import jax
 import jax.numpy as jnp
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
 
 from arctic_tpu.core.config import RenderConfig
 from arctic_tpu.ops import binning
 from arctic_tpu.ops.raster import TriSetup
+from arctic_tpu.ops.route import pallas_route
 
 Array = jnp.ndarray
 
+# Shade-row table lanes (pipeline.build_shade_rows): perspective-bary planes
+# [0:9), three 17-float corner attribute blocks at [9:26), [26:43), [43:60),
+# the 23-float material row at [60:83), zero pad to 88.
+SHADE_LANES = 88
+CORNER_BASE = (9, 26, 43)
+MAT_BASE = 60
+N_ATTR = 17
+N_MAT = 23
 
-def _interpret() -> bool:
-    return jax.default_backend() != "tpu"
-
-
-# Select kernel: 3 part-dots sharing one one-hot operand vs one concat'd
-# dot (A/B'd on hardware; bit-identical either way — see _select_kernel).
-SELECT_SPLIT_DOTS = False
-
-# Triangles per unrolled raster-kernel group step (multiple of 8; the
-# per-triangle fixed cost — 13 dynamic-address SMEM scalar loads + loop
-# bookkeeping — dominates per-pair time, so deeper unrolls trade loop
-# overhead for code size). 8 is the round-3 baseline; override via
-# ARCTIC_RASTER_UNROLL for hardware A/Bs. Results are bit-identical (the
-# per-triangle math and masking are unchanged; only grouping differs).
-import os as _os
-
-RASTER_UNROLL = int(_os.environ.get("ARCTIC_RASTER_UNROLL", "8"))
-assert RASTER_UNROLL % 8 == 0 and RASTER_UNROLL > 0
-
-# Select kernel: pixel banks per tile for chunk x bank zero-dot skipping
-# (segments are slot-sorted, so a chunk's slot range and a bank's winner
-# range are exact bounds — a disjoint pair contributes only zeros and its
-# compare+dot can be skipped). 1 disables (one full-tile dot per chunk).
-# A/B on hardware (tools/probe_select_banks, bit-identical frames): 4 banks
-# measured 0.5 ms WORSE (select 4.83 -> 5.35 ms — the per-chunk scalar
-# range reduces + pl.when machinery cost more than the skipped dots save),
-# so the default stays 1. The VMEM-scratch accumulator this introduced IS
-# faster than the old 2 MB fori_loop carry and is kept for both settings.
-SELECT_BANKS = 1
+# G-buffer lanes (resolve_gbuffer -> pipeline.shade_gbuffer): interpolated
+# attrs [0:17), material row [24:47), zero elsewhere.
+GBUF_LANES = 64
 
 
-def _round_up_8(x: int) -> int:
-    return (x + 7) // 8 * 8
-
-
-def _phase_resolve_kernel(g_ref, ph_ref, out_ref):
-    """Re-pack full gathered rows into the 16-lane pair stream.
-
-    The raster-row table is only FAST to gather as dense 128-lane rows
-    (8 slots x 16 comps per row): tools/probe_rowgather.py measured the
-    narrow (P, 16) table at 12-24 ns/row in EVERY layout (XLA stores the
-    in-graph stack column-major and each row touches two (8,128) tiles;
-    even a row-major input table pays the 8x lane padding), vs ~6 ns/row
-    for packed[idx // 8] full rows. This kernel resolves the slot-in-row
-    phase (idx % 8): transpose the gathered block in-register, 8-way
-    select on STATIC sublane slices, transpose back, and write 8 pairs
-    per 128-lane output row — the exact stream layout the raster kernel's
-    unroll-8 loop reads at static lane offsets. Pure f32 moves: the
-    selected values are bit-identical to table[idx] (ibuf exactness)."""
-    x = g_ref[...]  # (bpx, 128) f32 gathered group rows
-    xt = jnp.swapaxes(x, 0, 1)  # (128, bpx)
-    ph = ph_ref[...]  # (1, bpx) i32 in [0, 8)
-    y = xt[0:16, :]
-    for b in range(1, 8):
-        y = jnp.where(ph == b, xt[16 * b : 16 * b + 16, :], y)  # (16, bpx)
-    z = jnp.concatenate([y, jnp.zeros((112, x.shape[0]), jnp.float32)], axis=0)
-    zt = jnp.swapaxes(z, 0, 1)  # (bpx, 128); comps at lanes [0:16)
-    z3 = zt.reshape(zt.shape[0] // 8, 8, 128)
-    for u in range(8):
-        out_ref[:, 16 * u : 16 * (u + 1)] = z3[:, u, 0:16]
-
-
-def _pack16_kernel(x_ref, out_ref):
-    x = x_ref[...]  # (16, 8 * bpx) comp-major slot attributes
-    z = jnp.concatenate([x, jnp.zeros((112, x.shape[1]), jnp.float32)], axis=0)
-    zt = jnp.swapaxes(z, 0, 1)  # (8 * bpx, 128); comp j of slot s at [s, j]
-    z3 = zt.reshape(zt.shape[0] // 8, 8, 128)
-    for u in range(8):
-        out_ref[:, 16 * u : 16 * (u + 1)] = z3[:, u, 0:16]
-
-
-def pack_raster_rows_packed(comps, p: int, vma: tuple = ()) -> Array:
-    """16 dense (P',) slot comps -> (P'/8, 128) packed table,
-    row q lane 16u+j = comps[j][8q+u] (8 slots' 16-float rows per row).
-
-    Built by one Pallas interleave kernel over the plain (16, P') axis-0
-    stack (component math fuses into the stack; the stack is row-major for
-    free). Inside the kernel: pad to 128 sublanes, one in-register
-    transpose, then 8 static sublane/lane slice writes. Do NOT build this
-    with XLA stride-8 slices (comps[j][u::8]) — XLA lowers each 1D strided
-    slice as a 63k-row GATHER (~0.55 ms x 128 slices, measured r3i); and
-    the (P,16) stack + reshape path pays a relayout copy + the narrow-
-    table gather penalty downstream."""
-    assert len(comps) == 16 and p % 8 == 0
-    assert (p // 8) % 512 == 0, p  # raster_row_comps pads to 4096 slots
-    bpx = 512
-    stacked = jnp.stack(comps, axis=0)  # (16, P')
-    return pl.pallas_call(
-        _pack16_kernel,
-        grid=(p // (8 * bpx),),
-        in_specs=[pl.BlockSpec((16, 8 * bpx), lambda i: (0, i))],
-        out_specs=pl.BlockSpec((bpx, 128), lambda i: (i, 0)),
-        out_shape=jax.ShapeDtypeStruct(
-            (p // 8, 128), jnp.float32, vma=frozenset(vma)
-        ),
-        interpret=_interpret(),
-    )(stacked)
-
-
-def gather_pair_rows16(packed: Array, idx: Array, vma: tuple = ()) -> Array:
-    """(P'/8, 128) packed slot table + (N,) pair slots -> (N/8, 128)
-    pair-packed rows.
-
-    Equivalent to ``table16[idx].reshape(-1, 128)`` but ~2x faster on TPU:
-    one full-row gather from the dense packed view + the phase-resolve
-    kernel (see _phase_resolve_kernel). N must be a multiple of 8; the
-    block size pads internally."""
-    assert packed.shape[1] == 128
-    n = idx.shape[0]
-    bpx = 2048
-    npad = -n % bpx
-    if npad:
-        idx = jnp.pad(idx, (0, npad))
-    g = packed[idx // 8]
-    out = pl.pallas_call(
-        _phase_resolve_kernel,
-        grid=((n + npad) // bpx,),
-        in_specs=[
-            pl.BlockSpec((bpx, 128), lambda i: (i, 0)),
-            pl.BlockSpec((1, bpx), lambda i: (0, i)),
-        ],
-        out_specs=pl.BlockSpec((bpx // 8, 128), lambda i: (i, 0)),
-        out_shape=jax.ShapeDtypeStruct(
-            ((n + npad) // 8, 128), jnp.float32, vma=frozenset(vma)
-        ),
-        interpret=_interpret(),
-    )(g, (idx % 8).reshape(1, n + npad))
-    return out[: n // 8]
-
-
-def _transpose_pack_kernel(x_ref, out_ref):
-    out_ref[...] = jnp.swapaxes(x_ref[...], 0, 1)
-
-
-def transpose_pack_rows(stacked: Array, bpx: int = 512, vma: tuple = ()) -> Array:
-    """(128, N) component-major stack -> (N, 128) row-major table.
-
-    XLA builds an axis-1 stack of (N,) component planes COLUMN-major (the
-    concat is then free) and pays a separate 258 MB relayout copy + pad
-    before the row gather / kernel DMA can consume it (profiled 2.7 ms for
-    the shade-row table). An axis-0 stack is row-major for free (component
-    math still fuses into the concat), and this kernel does the transpose
-    at streaming bandwidth with one in-register swap per block."""
-    n = stacked.shape[1]
-    assert stacked.shape[0] == 128 and n % bpx == 0, stacked.shape
-    return pl.pallas_call(
-        _transpose_pack_kernel,
-        grid=(n // bpx,),
-        in_specs=[pl.BlockSpec((128, bpx), lambda i: (0, i))],
-        out_specs=pl.BlockSpec((bpx, 128), lambda i: (i, 0)),
-        out_shape=jax.ShapeDtypeStruct(
-            (n, 128), jnp.float32, vma=frozenset(vma)
-        ),
-        interpret=_interpret(),
-    )(stacked)
-
-
-def _pack_shade_rows_kernel(pf_ref, st_ref, out_ref, *, p: int, bpx: int):
-    """Synthesize one (bpx, 128) block of the fused shade-row table.
-
-    Inputs are component-major row stacks along the slot dim (see
-    pipeline.build_shade_rows for the lane map):
-      pf (48, bpx) per-frame planes: [0:9) raw edge coeffs A0,B0,C0,A1..,
-        [9:12) z plane, [12:15) inv_area2/w_c, [15:24) clip-corner blend
-        weights cb[c][k] at 15+3c+k, [24:33) world corners wc[k][i] at
-        24+3k+i, [33:42) light-space corners at 33+3k+r, [42:48) zero pad.
-      st (56, bpx) static rows: [0:33) tri_static_attrs (corner-major
-        k*11+j), [33:56) material row — both already in slot order.
-    The kernel blends corner attributes through cb, scales the edge planes
-    by inv_area2/w (the perspective-bary planes), synthesizes the slot-id
-    lanes from an iota (rows >= p get -2.0 at lane 9 / 0.0 at lane 124,
-    matching the old padded-stack fills), assembles the 128-lane component
-    matrix in-register, and writes its transpose — killing the old build's
-    516 MB full-table concatenate and the static lanes' per-frame traffic.
-
-    Exactness: the raster-plane lanes ([0:16) ebw/sid and [112:128)) are
-    bit-identical to the stacked build (pure pass-through and same-operand
-    products), so tiled-vs-bruteforce ibuf equality is unaffected. The
-    blended corner-attribute lanes use the same expressions in the same
-    order, but compiler-chosen FMA contraction may differ from the XLA
-    fusion's, so they can move by ~1 ulp on VALID slots (clip blend weights
-    are bounded there; measured max rel 3.8e-7, rendered frame 0 LSB vs the
-    stacked build on the conformance scene). Invalid slots can hold large
-    junk where degenerate clip weights no longer cancel exactly — they are
-    never binned, so no consumer reads them.
-    """
-    i = pl.program_id(0)
-    pf = pf_ref[...]
-    st = st_ref[...]
-    edges = pf[0:9]
-    zpl = pf[9:12]
-    sw = pf[12:15]
-    wcd = pf[24:33]
-    ebw = jnp.concatenate(
-        [edges[3 * c : 3 * c + 3] * sw[c : c + 1] for c in range(3)], axis=0
-    )
-    gid = jax.lax.broadcasted_iota(jnp.int32, (1, bpx), 1) + i * bpx
-    gidf = gid.astype(jnp.float32)
-    valid = gid < p
-    sid9 = jnp.where(valid, gidf, -2.0)
-    sid124 = jnp.where(valid, gidf, 0.0)
-
-    def z(k):
-        return jnp.zeros((k, bpx), jnp.float32)
-
-    groups = []
-    for c in range(3):
-        cb0 = pf[15 + 3 * c : 16 + 3 * c]
-        cb1 = pf[16 + 3 * c : 17 + 3 * c]
-        cb2 = pf[17 + 3 * c : 18 + 3 * c]
-        ca_w = cb0 * wcd[0:3] + cb1 * wcd[3:6] + cb2 * wcd[6:9]
-        ca_sa = cb0 * st[0:11] + cb1 * st[11:22] + cb2 * st[22:33]
-        ca_ls = cb0 * pf[33:36] + cb1 * pf[36:39] + cb2 * pf[39:42]
-        groups.append(jnp.concatenate([ca_w, ca_sa, ca_ls, z(7)], axis=0))
-    m = jnp.concatenate(
-        [ebw, sid9, z(6)] + groups + [st[33:56], z(1), edges, zpl, sid124, z(3)],
-        axis=0,
-    )  # (128, bpx) component-major
-    out_ref[...] = jnp.swapaxes(m, 0, 1)
-
-
-def pack_shade_rows(
-    pf: Array, stat: Array, p: int, bpx: int = 512, vma: tuple = ()
-) -> Array:
-    """(48, N) per-frame planes + (56, N) static rows -> (N, 128) table."""
-    n = pf.shape[1]
-    assert pf.shape[0] == 48 and stat.shape == (56, n) and n % bpx == 0, (
-        pf.shape,
-        stat.shape,
-    )
-    return pl.pallas_call(
-        functools.partial(_pack_shade_rows_kernel, p=p, bpx=bpx),
-        grid=(n // bpx,),
-        in_specs=[
-            pl.BlockSpec((48, bpx), lambda i: (0, i)),
-            pl.BlockSpec((56, bpx), lambda i: (0, i)),
-        ],
-        out_specs=pl.BlockSpec((bpx, 128), lambda i: (i, 0)),
-        out_shape=jax.ShapeDtypeStruct((n, 128), jnp.float32, vma=frozenset(vma)),
-        interpret=_interpret(),
-    )(pf, stat)
-
-
-def _pack_shade_rows_tm_kernel(
-    pf_ref, tri_ref, st_ref, out_ref, *, p: int, cap: int, bpx: int
-):
-    """pack_shade_rows with the 18 duplicated planes read TRI-major.
-
-    The wc/lsp corner planes are per-TRIANGLE; the stacked build dup'd
-    them to clip-slot order ([tri; tri]) inside the 48-row pf stack,
-    doubling their write+read traffic (and the old full-table build
-    before it did the same). When cap % bpx == 0 the dup is pure block
-    indexing: slot block i reads tri block i % (cap/bpx), blocks past
-    2*cap/bpx are masked to the old zero padding. Saves ~80 MB of HBM
-    traffic per frame at bench scale (97 MB pf stack -> 48.5 + 18 read
-    once). Lane values are bit-identical to the 48-row kernel.
-    """
-    i = pl.program_id(0)
-    pf = pf_ref[...]  # (24, bpx) slot-major per-frame planes
-    tri = tri_ref[...]  # (18, bpx) tri-major wc[k][i] rows 0:9, lsp 9:18
-    st = st_ref[...]
-    edges = pf[0:9]
-    zpl = pf[9:12]
-    sw = pf[12:15]
-    ebw = jnp.concatenate(
-        [edges[3 * c : 3 * c + 3] * sw[c : c + 1] for c in range(3)], axis=0
-    )
-    gid = jax.lax.broadcasted_iota(jnp.int32, (1, bpx), 1) + i * bpx
-    gidf = gid.astype(jnp.float32)
-    valid = gid < p
-    sid9 = jnp.where(valid, gidf, -2.0)
-    sid124 = jnp.where(valid, gidf, 0.0)
-    # Slots >= 2*cap (the dead slot + padding) carried ZEROS in the dup'd
-    # stack; the modular block map would hand them tri block 0's data.
-    dupv = gid < 2 * cap
-    wcd = jnp.where(dupv, tri[0:9], 0.0)
-    lspd = jnp.where(dupv, tri[9:18], 0.0)
-
-    def z(k):
-        return jnp.zeros((k, bpx), jnp.float32)
-
-    groups = []
-    for c in range(3):
-        cb0 = pf[15 + 3 * c : 16 + 3 * c]
-        cb1 = pf[16 + 3 * c : 17 + 3 * c]
-        cb2 = pf[17 + 3 * c : 18 + 3 * c]
-        ca_w = cb0 * wcd[0:3] + cb1 * wcd[3:6] + cb2 * wcd[6:9]
-        ca_sa = cb0 * st[0:11] + cb1 * st[11:22] + cb2 * st[22:33]
-        ca_ls = cb0 * lspd[0:3] + cb1 * lspd[3:6] + cb2 * lspd[6:9]
-        groups.append(jnp.concatenate([ca_w, ca_sa, ca_ls, z(7)], axis=0))
-    m = jnp.concatenate(
-        [ebw, sid9, z(6)] + groups + [st[33:56], z(1), edges, zpl, sid124, z(3)],
-        axis=0,
-    )  # (128, bpx) component-major
-    out_ref[...] = jnp.swapaxes(m, 0, 1)
-
-
-def pack_shade_rows_tm(
-    pf: Array, tri: Array, stat: Array, p: int, bpx: int = 512, vma: tuple = ()
-) -> Array:
-    """(24, N) slot-major + (18, cap) tri-major + (56, N) static -> (N, 128).
-
-    Requires cap % bpx == 0 (build_buffers' tri_bucket guarantees it for
-    bucket multiples of 512); pipeline.build_shade_rows falls back to
-    pack_shade_rows otherwise.
-    """
-    n = pf.shape[1]
-    cap = tri.shape[1]
-    tb = cap // bpx
-    assert (
-        pf.shape[0] == 24
-        and tri.shape[0] == 18
-        and stat.shape == (56, n)
-        and n % bpx == 0
-        and cap % bpx == 0
-        and p == 2 * cap + 1
-    ), (pf.shape, tri.shape, stat.shape, p)
-
-    def tri_map(i):
-        return (0, jnp.where(i < 2 * tb, jax.lax.rem(i, tb), 0))
-
-    return pl.pallas_call(
-        functools.partial(_pack_shade_rows_tm_kernel, p=p, cap=cap, bpx=bpx),
-        grid=(n // bpx,),
-        in_specs=[
-            pl.BlockSpec((24, bpx), lambda i: (0, i)),
-            pl.BlockSpec((18, bpx), tri_map),
-            pl.BlockSpec((56, bpx), lambda i: (0, i)),
-        ],
-        out_specs=pl.BlockSpec((bpx, 128), lambda i: (i, 0)),
-        out_shape=jax.ShapeDtypeStruct((n, 128), jnp.float32, vma=frozenset(vma)),
-        interpret=_interpret(),
-    )(pf, tri, stat)
+def raster_planes(setup: TriSetup) -> Array:
+    """(P, 16) f32 per-slot raster rows: A,B,C of the three edges, the z
+    plane, zero pad. The kernel reads lanes [0:12) of a row per triangle."""
+    comps = [c for e in setup.edges for c in e] + list(setup.zplane)
+    z = jnp.zeros_like(comps[0])
+    return jnp.stack(comps + [z] * 4, axis=1)
 
 
 def _raster_kernel(
-    # scalar prefetch
     seg_start_ref,
     seg_len_ref,
     row0_ref,
-    # inputs
-    rows_hbm,
-    # outputs (zref [, iref]) + scratch — depth_only kernels emit NO ibuf
-    # (the shadow pass discards it; the write was 65 MB/frame at 4000^2)
-    *out_scratch,
+    rows_ref,
+    *refs,
     tiles_x: int,
     tile_h: int,
     tile_w: int,
-    chunk: int,
-    depth_only: bool = False,
-    tps: int = 1,
-    full_rows: bool = False,
-    lut_rows: bool = False,
+    depth_only: bool,
 ):
-    if lut_rows:
-        # Depth-only variant emitting ROW-major (th, tps*tw) blocks — the
-        # window-LUT build's input layout — instead of tile-major blocks.
-        # The tile-major z then needed an _untile transpose + a retile copy
-        # before the LUT kernel could DMA row slabs (~0.5 ms at 4000^2,
-        # hlo_r5a copy_bitcast_fusion + copy.308). z accumulates in VMEM
-        # scratch; pairs of 64-px tiles assemble into full 128-lane rows.
-        zflat_ref, zs, rows_smem, sems = out_scratch
-        zref = zs
-        iref = None
-    elif depth_only:
-        zref, rows_smem, sems = out_scratch
-        iref = None
+    if depth_only:
+        (z_ref,) = refs
+        slot_ref = i_ref = None
     else:
-        zref, iref, rows_smem, sems = out_scratch
-    step = pl.program_id(0)
-    sublanes = tile_h * tile_w // 128
-    lane = jax.lax.broadcasted_iota(jnp.int32, (sublanes, 128), 1)
-    sub = jax.lax.broadcasted_iota(jnp.int32, (sublanes, 128), 0)
-    p = sub * 128 + lane  # row-major pixel index within the tile
+        slot_ref, z_ref, i_ref = refs
+    t = pl.program_id(0)
+    start = seg_start_ref[t]
+    n = seg_len_ref[t]
+    sub = tile_h * tile_w // 128
+    lane = jax.lax.broadcasted_iota(jnp.int32, (sub, 128), 1)
+    srow = jax.lax.broadcasted_iota(jnp.int32, (sub, 128), 0)
+    p = srow * 128 + lane  # row-major pixel index within the tile
+    tx = t % tiles_x
+    ty = row0_ref[0] + t // tiles_x  # global tile row (sharded slabs)
+    px = (tx * tile_w + p % tile_w).astype(jnp.float32) + 0.5
+    py = (ty * tile_h + p // tile_w).astype(jnp.float32) + 0.5
 
-    # ``tps`` tiles per grid step: the per-step sequencing/writeback overhead
-    # (~1 us) would otherwise dominate kernels whose tiles carry few pairs.
-    # The seg arrays are padded to the grid (pad tiles have n == 0).
-    # Segment starts are UNALIGNED offsets straight into the sorted pair
-    # list: the DMA fetches from the floored-8 row and the triangle loop
-    # skips the leading o = start % 8 rows — this removed align_segments'
-    # per-pass scatter + 344k-row re-layout gather (~5 ms/frame).
-    # With full_rows the table is the 128-lane shade-row table itself
-    # (raster planes at lanes [112:125), see pipeline.build_shade_rows) —
-    # the camera pass then needs no second 16-lane table or gather.
-    for i in range(tps):
-        t = step * tps + i
-        start = seg_start_ref[t]  # row offset into the sorted triangle list
-        n = seg_len_ref[t]
-        o = jax.lax.rem(start, 8)
+    def body(k, carry):
+        zbuf, ibuf = carry
 
-        tx = t % tiles_x
-        ty = row0_ref[0] + t // tiles_x  # global tile row (sharded slices)
-        px = (tx * tile_w + p % tile_w).astype(jnp.float32) + 0.5
-        py = (ty * tile_h + p // tile_w).astype(jnp.float32) + 0.5
+        def r(j):
+            return rows_ref[k, j]
 
-        zref[i] = jnp.ones((sublanes, 128), jnp.float32)
-        if not depth_only:
-            iref[i] = jnp.full((sublanes, 128), -1, jnp.int32)
+        # Same expressions, in the same order, as rasterize_bruteforce.
+        e0 = r(0) * px + r(1) * py + r(2)
+        e1 = r(3) * px + r(4) * py + r(5)
+        e2 = r(6) * px + r(7) * py + r(8)
+        z = r(9) * px + r(10) * py + r(11)
+        # z <= 1 is implied by z < zbuf (zbuf only decreases from 1.0).
+        ok = (e0 >= 0.0) & (e1 >= 0.0) & (e2 >= 0.0) & (z >= 0.0) & (z < zbuf)
+        zbuf = jnp.where(ok, z, zbuf)
+        if ibuf is not None:
+            ibuf = jnp.where(ok, slot_ref[k], ibuf)
+        return zbuf, ibuf
 
-        def chunk_dma(c, slot, start=start, o=o):
-            if full_rows:
-                src = rows_hbm.at[pl.ds(start - o + c * chunk, chunk)]
-            else:
-                src = rows_hbm.at[pl.ds(start // 8 + c * (chunk // 8), chunk // 8)]
-            return pltpu.make_async_copy(src, rows_smem.at[slot], sems.at[slot])
+    zbuf0 = jnp.ones((sub, 128), jnp.float32)
+    ibuf0 = None if depth_only else jnp.full((sub, 128), -1, jnp.int32)
+    zbuf, ibuf = jax.lax.fori_loop(start, start + n, body, (zbuf0, ibuf0))
+    z_ref[...] = zbuf
+    if not depth_only:
+        i_ref[...] = ibuf
 
-        num_chunks = pl.cdiv(n + o, chunk)
 
-        @pl.when(n > 0)
-        def _(i=i, n=n, o=o, num_chunks=num_chunks, chunk_dma=chunk_dma, px=px, py=py):
-            chunk_dma(0, 0).start()
-
-            def chunk_body(c, _):
-                slot = jax.lax.rem(c, 2)
-
-                @pl.when(c + 1 < num_chunks)
-                def _():
-                    chunk_dma(c + 1, 1 - slot).start()
-
-                chunk_dma(c, slot).wait()
-                # Segment rows live at local offsets [o, o + n) across the
-                # chunk sequence; this chunk covers locals [c*chunk, +chunk).
-                lo = jnp.maximum(o, c * chunk) - c * chunk
-                hi = jnp.minimum(o + n, (c + 1) * chunk) - c * chunk
-
-                # 8 triangles per group step, unrolled with STATIC sublane
-                # offsets: the per-triangle fixed cost (13 dynamic-address
-                # SMEM scalar loads + loop bookkeeping) dominated the
-                # per-pair time (~50 ns/pair measured vs ~20 ns of VPU
-                # plane math); unrolling pipelines the loads. Range
-                # validity folds into 3 SCALAR selects on the z-plane
-                # (invalid -> z==2 fails z<=1), costing no vector ops.
-                def group_body(g, _):
-                    for u in range(RASTER_UNROLL):
-                        k = g * RASTER_UNROLL + u
-                        if full_rows:
-                            r = lambda j, g=g, u=u: rows_smem[
-                                slot, g * RASTER_UNROLL + u, 112 + j
-                            ]
-                        else:  # packed: triangle k at row k//8, lane (k%8)*16
-                            r = lambda j, g=g, u=u: rows_smem[
-                                slot,
-                                g * (RASTER_UNROLL // 8) + u // 8,
-                                (u % 8) * 16 + j,
-                            ]
-                        valid = (k >= lo) & (k < hi)
-                        e0 = r(0) * px + r(1) * py + r(2)
-                        e1 = r(3) * px + r(4) * py + r(5)
-                        e2 = r(6) * px + r(7) * py + r(8)
-                        az = jnp.where(valid, r(9), 0.0)
-                        bz = jnp.where(valid, r(10), 0.0)
-                        cz = jnp.where(valid, r(11), 2.0)
-                        z = az * px + bz * py + cz
-                        zbuf = zref[i]
-                        # Bit-exact trim of the accept chain: the three
-                        # edge tests and z >= 0 fold into mins (NaNs
-                        # propagate and still reject), and z <= 1 is
-                        # implied by z < zbuf (zbuf only decreases from
-                        # its 1.0 clear). 11 vector ops -> 6.
-                        ok = (
-                            jnp.minimum(jnp.minimum(e0, e1), jnp.minimum(e2, z))
-                            >= 0.0
-                        ) & (z < zbuf)
-                        zref[i] = jnp.where(ok, z, zbuf)
-                        if not depth_only:
-                            # slot id value-encoded in f32
-                            sid = r(12).astype(jnp.int32)
-                            iref[i] = jnp.where(ok, sid, iref[i])
-                    return 0
-
-                jax.lax.fori_loop(
-                    lo // RASTER_UNROLL, pl.cdiv(hi, RASTER_UNROLL), group_body, 0
-                )
-                return 0
-
-            jax.lax.fori_loop(0, num_chunks, chunk_body, 0)
-
-    if lut_rows:
-        # Assemble the step's tps 64-px-wide tiles into (tile_h, tps * 64)
-        # row-major depth: tile pairs (2j, 2j+1) form full 128-lane rows.
-        # In a 64-wide tile, pixel row r lives at sublane r // 2, lane half
-        # (r % 2) * 64 — the interleave is two lane-half merges (roll +
-        # select) and one sublane expansion.
-        lane128 = jax.lax.broadcasted_iota(jnp.int32, (sublanes, 128), 1)
-        for j in range(tps // 2):
-            a = zref[2 * j]
-            b = zref[2 * j + 1]
-            a_roll = pltpu.roll(a, 64, 1)
-            b_roll = pltpu.roll(b, 64, 1)
-            even = jnp.where(lane128 < 64, a, b_roll)  # pixel rows 2q
-            odd = jnp.where(lane128 < 64, a_roll, b)  # pixel rows 2q + 1
-            inter = jnp.stack([even, odd], axis=1).reshape(2 * sublanes, 128)
-            zflat_ref[:, 128 * j : 128 * (j + 1)] = inter
+def raster_warps(tile_px: int) -> int:
+    """Warps per raster program: 8 (fastest for 32x32 tiles on an H100,
+    PERF.md), fewer only when the tile has under 4 pixels per thread."""
+    return max(1, min(8, tile_px // 128))
 
 
 def _untile(buf: Array, tiles_y: int, tiles_x: int, tile_h: int, tile_w: int) -> Array:
@@ -534,43 +124,12 @@ def _untile(buf: Array, tiles_y: int, tiles_x: int, tile_h: int, tile_w: int) ->
     )
 
 
-def untile_channels(
-    buf: Array, tiles_y: int, tiles_x: int, tile_h: int, tile_w: int
-) -> Array:
-    """(num_tiles, S, C) tile-major pixels -> (Hp, Wp, C).
-
-    Deliberately applied only to the final u8 frame: shading stays tile-major
-    end-to-end so the big f32 buffers never pay this shuffle."""
-    c = buf.shape[-1]
-    return (
-        buf.reshape(tiles_y, tiles_x, tile_h, tile_w, c)
-        .transpose(0, 2, 1, 3, 4)
-        .reshape(tiles_y * tile_h, tiles_x * tile_w, c)
-    )
-
-
-def untile_channels_first(
-    buf: Array, tiles_y: int, tiles_x: int, tile_h: int, tile_w: int
-) -> Array:
-    """(num_tiles, C, S) channel-first tile-major pixels -> (Hp, Wp, C)."""
-    c = buf.shape[1]
-    return (
-        buf.reshape(tiles_y, tiles_x, c, tile_h, tile_w)
-        .transpose(0, 3, 1, 4, 2)
-        .reshape(tiles_y * tile_h, tiles_x * tile_w, c)
-    )
-
-
 def untile_packed_u8(
     buf: Array, tiles_y: int, tiles_x: int, tile_h: int, tile_w: int
 ) -> Array:
-    """untile_channels_first specialized for the final (3, R, 128) u8 frame
-    (channel-leading pixel-block layout, matching the fused shading path).
+    """(3, R, 128) channel-leading u8 pixel blocks -> (Hp, Wp, 3) u8.
 
-    Packs RGB into one i32 plane first so the tile-unshuffle transposes a
-    single plane instead of a 3-channel u8 layout (small-minor u8
-    transposes are the slow path on TPU), then unpacks to (Hp, Wp, 3) u8.
-    """
+    RGB packs into one i32 plane so the tile unshuffle moves one plane."""
     r = buf[0].astype(jnp.int32)
     g = buf[1].astype(jnp.int32)
     b = buf[2].astype(jnp.int32)
@@ -584,270 +143,65 @@ def untile_packed_u8(
     ).astype(jnp.uint8)
 
 
-# --------------------------------------------------------------------------
-# Fused select+interp kernel (the deferred-shading gather killer)
-# --------------------------------------------------------------------------
+def pixel_block_centers(r_rows: int, tiles_x: int, tile_h: int, tile_w: int, tile_row0=0):
+    """Pixel centers (px, py), each (R, 128) f32, of the pixel-block layout:
+    row r lane l is pixel 128 * (r % sub) + l of tile r // sub.
 
-GBUF_LANES = 64  # interp attrs [0:17), material row [24:43) — see build_shade_rows
-
-
-def _select_kernel(
-    # scalar prefetch
-    seg_start_ref,
-    seg_len_ref,
-    row0_ref,
-    # inputs
-    rows_hbm,
-    iref,
-    # outputs
-    out_ref,
-    # scratch
-    rows_vmem,
-    sems,
-    acc_vmem,
-    *,
-    tiles_x: int,
-    tile_h: int,
-    tile_w: int,
-    chunk: int,
-    banks: int = 1,
-):
-    """Per tile: re-stream the tile's triangle list as full 128-lane shade
-    rows and resolve per-pixel shading inputs with ZERO per-pixel gathers.
-
-    The winning row per pixel is selected by an exact one-hot matmul on the
-    MXU: onehot[k, p] = (slot_id[k] == ibuf[p]), acc = rows^T @ onehot.
-    One-hot entries are exact in bf16 and each output lane receives exactly
-    one product, so HIGHEST-precision (3-pass bf16 split) reconstruction of
-    the f32 row values is bit-exact. Everything downstream of the raster's
-    ibuf that the deferred path paid ~14 ns/row XLA gathers for (shade-table
-    row fetch + attribute interpolation) happens here in VMEM/VREGs.
-
-    Work is attr-major: acc is (128 row lanes, 128 pixels), the
-    interpolation's field accesses are 8-aligned sublane slices, and the
-    G-buffer is emitted attr-major (GBUF_LANES, pixels) — the downstream XLA
-    shading is written channel-first so every hot array keeps the PIXEL dim
-    minor. (Channel-last (pixels, C) output was tried first: XLA assigns
-    {1,2,0:T(4,128)} layouts to small-minor elementwise fusions but standard
-    layouts at loop/cond/custom-call boundaries, inserting ~200 ms/frame of
-    layout copies at 1080p.)
-    """
-    t = pl.program_id(0)
-    start = seg_start_ref[t]
-    n = seg_len_ref[t]
-    groups = tile_h * tile_w // 128
-    ppr = 128 // tile_w  # pixel rows per lane group
-    # Unaligned segment start: DMA from the floored-8 row and mask the
-    # leading o rows (they belong to the previous tile's segment).
-    o = jax.lax.rem(start, 8)
-    base = start - o
-
-    tx = t % tiles_x
-    ty = row0_ref[0] + t // tiles_x
-    lane = jax.lax.broadcasted_iota(jnp.int32, (1, 128), 1)
-    px = (tx * tile_w + lane % tile_w).astype(jnp.float32) + 0.5
-    py_base = (ty * tile_h + lane // tile_w).astype(jnp.float32) + 0.5
-
-    nb = banks if banks > 1 and groups % banks == 0 else 1
-    gpb = groups // nb
-    # Accumulate in VMEM scratch (not a loop carry) so each chunk x bank
-    # contribution can run under pl.when: segments are SLOT-SORTED, so a
-    # chunk's [smin, smax] and a bank's winner [bmin, bmax] are exact range
-    # bounds — disjoint ranges mean the bank's one-hot is all-zero for this
-    # chunk and the compare+dot is skipped outright (uncovered banks skip
-    # every chunk: bmax stays -1). Skipped contributions are exactly the
-    # zeros the full dot would have added, so the output is bit-identical.
-    for b in range(nb):
-        acc_vmem[b] = jnp.zeros((128, gpb * 128), jnp.float32)
-    iref_i = iref[0]  # (groups, 128) i32
-    # Winner-id range per bank (nb == 1: whole tile). Even without banking
-    # the per-chunk range test pays: chunks whose triangles all LOST the
-    # depth test match no winner and skip their compare+dot entirely.
-    bmaxs = []
-    bmins = []
-    for b in range(nb):
-        blk = iref_i[b * gpb : (b + 1) * gpb]
-        bmaxs.append(jnp.max(blk).astype(jnp.float32))
-        bmins.append(
-            jnp.min(jnp.where(blk >= 0, blk, jnp.int32(1 << 30))).astype(
-                jnp.float32
-            )
-        )
-    iref_f = iref_i.reshape(1, groups * 128).astype(jnp.float32)
-
-    # Empty tiles must run ZERO chunks (cdiv(o, chunk) would be 1 for
-    # o > 0 and the body would wait on a DMA the n > 0 guard never starts).
-    num_chunks = jnp.where(n > 0, pl.cdiv(n + o, chunk), 0)
-    k_iota = jax.lax.broadcasted_iota(jnp.int32, (chunk, 1), 0)
-
-    def chunk_dma(c, slot):
-        return pltpu.make_async_copy(
-            rows_hbm.at[pl.ds(base + c * chunk, chunk)],
-            rows_vmem.at[slot],
-            sems.at[slot],
-        )
-
-    def body(c, carry):
-        slot = jax.lax.rem(c, 2)
-
-        @pl.when(c + 1 < num_chunks)
-        def _():
-            chunk_dma(c + 1, 1 - slot).start()
-
-        chunk_dma(c, slot).wait()
-        rows = rows_vmem[slot]
-        # Mask rows outside the segment (the previous / next tile's rows):
-        # their slot ids must never match a pixel. Valid chunk-local rows
-        # are [o - c*chunk, o + n - c*chunk).
-        kvalid = (k_iota >= o - c * chunk) & (k_iota < o + n - c * chunk)
-        sid = jnp.where(kvalid, rows[:, 9:10], -2.0)
-        # Manual 3-way bf16 split of the f32 rows (exact: 24-bit mantissa =
-        # 3 x 8; the one-hot is exact in bf16 and each output lane receives
-        # exactly one product) — bit-identical to Precision.HIGHEST at half
-        # the MXU passes.
-        hi = rows.astype(jnp.bfloat16)
-        r1 = rows - hi.astype(jnp.float32)
-        mid = r1.astype(jnp.bfloat16)
-        lo = (r1 - mid.astype(jnp.float32)).astype(jnp.bfloat16)
-        # ONE dot per chunk x live bank: K stacks the 3 bf16 parts (the
-        # one-hot repeats per part), N concatenates the bank's pixel
-        # groups. The (chunk, N) compare + bf16 convert is as expensive as
-        # the MXU dot itself, so the skip removes both.
-        cat = jnp.concatenate([hi, mid, lo], axis=0)  # (3*chunk, 128)
-
-        def bank_dot(b):
-            ohb = (
-                sid == iref_f[:, b * gpb * 128 : (b + 1) * gpb * 128]
-            ).astype(jnp.bfloat16)  # (chunk, gpb*128)
-            if SELECT_SPLIT_DOTS:
-                # Three dots sharing the one-hot operand: skips the
-                # (3*chunk, N) bf16 one-hot concat at the cost of 2
-                # extra f32 adds. Bit-identical: the parts are disjoint
-                # 8-bit mantissa slices, so hi+mid+lo adds are exact
-                # regardless of order.
-                acc_b = acc_vmem[b]
-                for part in (hi, mid, lo):
-                    acc_b = acc_b + jax.lax.dot_general(
-                        part,
-                        ohb,
-                        dimension_numbers=(((0,), (0,)), ((), ())),
-                        preferred_element_type=jnp.float32,
-                    )
-                acc_vmem[b] = acc_b
-            else:
-                onehot = jnp.concatenate([ohb, ohb, ohb], axis=0)
-                acc_vmem[b] = acc_vmem[b] + jax.lax.dot_general(
-                    cat,
-                    onehot,
-                    dimension_numbers=(((0,), (0,)), ((), ())),
-                    preferred_element_type=jnp.float32,
-                )  # (128, gpb*128)
-
-        smax = jnp.max(sid)
-        smin = jnp.min(jnp.where(kvalid, sid, jnp.float32(3e38)))
-        for b in range(nb):
-
-            @pl.when((bmaxs[b] >= smin) & (bmins[b] <= smax))
-            def _(b=b):
-                bank_dot(b)
-
-        return carry
-
-    @pl.when(n > 0)
-    def _():
-        chunk_dma(0, 0).start()
-
-    jax.lax.fori_loop(0, num_chunks, body, 0)
-
-    for s in range(groups):
-        bi, gi = divmod(s, gpb)
-        acc = acc_vmem[bi][:, 128 * gi : 128 * (gi + 1)]  # (row lanes, pixels)
-        py = py_base + float(s * ppr)
-        # Perspective-correct barycentrics over the clipped corners
-        # (same math as the deferred shade, pipeline.shade).
-        bw = [
-            acc[3 * c : 3 * c + 1, :] * px
-            + acc[3 * c + 1 : 3 * c + 2, :] * py
-            + acc[3 * c + 2 : 3 * c + 3, :]
-            for c in range(3)
-        ]
-        den = bw[0] + bw[1] + bw[2]
-        den = jnp.where(den == 0.0, 1.0, den)
-        b = [x / den for x in bw]
-        attr = (
-            b[0] * acc[16:40, :] + b[1] * acc[40:64, :] + b[2] * acc[64:88, :]
-        )  # (24, 128); lanes 17:24 are zero in the table
-        blk = jnp.concatenate(
-            [attr, acc[88:112, :], jnp.zeros((16, 128), jnp.float32)], axis=0
-        )  # (GBUF_LANES, 128) attr-major
-        out_ref[:, s, :] = blk
-
-
-def select_interp_tiles(
-    rows: Array,
-    segs,
-    it_tiles: Array,
-    tiles_x: int,
-    tile_rows: int,
-    tile_h: int,
-    tile_w: int,
-    tile_row0,
-    chunk: int = 128,
-    vma: tuple = (),
-) -> Array:
-    """Resolve the per-pixel G-buffer from tile ibufs + binned lists.
-
-    rows: (pair_cap + tail, 128) shade rows ALREADY gathered into pair
-    order by bin_and_rasterize (one gather feeds both kernels).
-    segs: (seg_start, seg_len) from bin_and_rasterize.
-    it_tiles: (num_tiles, S/128, 128) i32 slot ids from the raster kernel.
-    Returns (GBUF_LANES, R, 128) f32 with R = num_tiles * S/128 — LANE-major
-    pixel-BLOCK layout: the downstream channel-leading shading
-    (pipeline.shade_gbuffer) slices per-lane (R, 128) planes as contiguous
-    rows. Emitting (T, GBUF_LANES, S) instead paid a 1.6 ms {2,1,0}->{2,0,1}
-    relayout copy of the 510 MB buffer at 1080p, and reshaping to
-    (L, T, S=sub*128) paid a 1.76 ms retiling copy (TPU (8,128) tiling of
-    [T, 4096] groups 8 TILE rows per tile, not 8 sublane rows — the element
-    orders differ). (R, 128) <-> (T, sub, 128) <-> flat (R*128,) are all
-    free bitcasts, so the whole shading chain stays copy-free.
-    """
+    tile_w divides 128, so the in-tile pixel index factors into per-row and
+    per-lane terms (p % tw == lane % tw, p // tw == (r % sub) * (128 // tw)
+    + lane // tw)."""
     assert 128 % tile_w == 0, "tile_w must divide a lane row"
-    seg_start, seg_len = segs
-    num_tiles = tiles_x * tile_rows
-    sublanes = tile_h * tile_w // 128
-    row0_arr = jnp.asarray(tile_row0, jnp.int32).reshape(1)
+    sub = tile_h * tile_w // 128
+    r_idx = jnp.arange(r_rows, dtype=jnp.int32)[:, None]
+    lane = jnp.arange(128, dtype=jnp.int32)[None, :]
+    t_idx = r_idx // sub
+    px = ((t_idx % tiles_x) * tile_w + lane % tile_w).astype(jnp.float32) + 0.5
+    py = (
+        (tile_row0 + t_idx // tiles_x) * tile_h
+        + (r_idx % sub) * (128 // tile_w)
+        + lane // tile_w
+    ).astype(jnp.float32) + 0.5
+    return px, py
 
-    nb = SELECT_BANKS if SELECT_BANKS > 1 and sublanes % SELECT_BANKS == 0 else 1
-    grid_spec = pltpu.PrefetchScalarGridSpec(
-        num_scalar_prefetch=3,
-        grid=(num_tiles,),
-        in_specs=[
-            pl.BlockSpec(memory_space=pl.ANY),
-            pl.BlockSpec((1, sublanes, 128), lambda i, *_: (i, 0, 0)),
-        ],
-        out_specs=pl.BlockSpec(
-            (GBUF_LANES, sublanes, 128), lambda i, *_: (0, i, 0)
-        ),
-        scratch_shapes=[
-            pltpu.VMEM((2, chunk, 128), jnp.float32),
-            pltpu.SemaphoreType.DMA((2,)),
-            pltpu.VMEM((nb, 128, (sublanes // nb) * 128), jnp.float32),
-        ],
-    )
-    kernel = functools.partial(
-        _select_kernel, tiles_x=tiles_x, tile_h=tile_h, tile_w=tile_w,
-        chunk=chunk, banks=nb,
-    )
-    out = pl.pallas_call(
-        kernel,
-        grid_spec=grid_spec,
-        out_shape=jax.ShapeDtypeStruct(
-            (GBUF_LANES, num_tiles * sublanes, 128), jnp.float32,
-            vma=frozenset(vma),
-        ),
-        interpret=_interpret(),
-    )(seg_start, seg_len, row0_arr, rows, it_tiles)
-    return out  # (L, R, 128), R = num_tiles * sublanes
+
+def resolve_gbuffer(
+    shade_rows: Array,
+    ibuf_rows: Array,
+    tiles_x: int,
+    tile_h: int,
+    tile_w: int,
+    tile_row0=0,
+) -> Array:
+    """Per-pixel G-buffer from the winning slot ids, in plain XLA.
+
+    shade_rows: (P, SHADE_LANES) from pipeline.build_shade_rows. ibuf_rows:
+    (R, 128) i32 slot ids in the pixel-block layout (-1 = uncovered).
+    Each covered pixel gathers its slot's row, evaluates the perspective
+    barycentrics at its center and interpolates the corner attributes.
+    Returns (GBUF_LANES, R, 128) f32, channel-leading, zero where uncovered.
+    """
+    r_rows = ibuf_rows.shape[0]
+    covered = ibuf_rows >= 0
+    row = shade_rows[jnp.maximum(ibuf_rows, 0)]  # (R, 128, SHADE_LANES)
+    px, py = pixel_block_centers(r_rows, tiles_x, tile_h, tile_w, tile_row0)
+
+    def lane(j):
+        return row[..., j]
+
+    bw = [lane(3 * c) * px + lane(3 * c + 1) * py + lane(3 * c + 2) for c in range(3)]
+    den = bw[0] + bw[1] + bw[2]
+    den = jnp.where(den == 0.0, 1.0, den)
+    b = [x / den for x in bw]
+    c0, c1, c2 = CORNER_BASE
+    attr = [
+        b[0] * lane(c0 + j) + b[1] * lane(c1 + j) + b[2] * lane(c2 + j)
+        for j in range(N_ATTR)
+    ]
+    mat = [lane(MAT_BASE + j) for j in range(N_MAT)]
+    zero = jnp.zeros_like(px)
+    planes = attr + [zero] * (24 - N_ATTR) + mat + [zero] * (GBUF_LANES - 24 - N_MAT)
+    gbuf = jnp.stack(planes, axis=0)
+    return jnp.where(covered[None], gbuf, 0.0)
 
 
 def raster_gbuffer(
@@ -858,76 +212,48 @@ def raster_gbuffer(
     config: RenderConfig,
     tile_row0=0,
     tile_rows: int | None = None,
-    vma: tuple = (),
-    kind: str = "cam",
 ):
-    """Fused visibility + shading-input resolve for the camera pass.
+    """Camera-pass visibility + shading-input resolve.
 
-    Returns (ibuf_tiles (R, 128) i32, gbuf (GBUF_LANES, R, 128) f32
-    lane-major, total_pairs) with R = num_tiles * tile_px / 128 (the
-    pixel-block layout — see select_interp_tiles). Everything stays
-    tile-major; callers untile only the final u8 frame.
+    Returns (ibuf_rows (R, 128) i32, gbuf (GBUF_LANES, R, 128) f32,
+    total_pairs) with R = num_tiles * tile_px / 128 (the pixel-block layout;
+    see resolve_gbuffer). Everything stays tile-major; callers untile only
+    the final u8 frame.
     """
     th, tw = config.tile_h, config.tile_w
     tiles_x = -(-width // tw)
     if tile_rows is None:
         tile_rows = -(-height // th)
-    zt, it, segs, pairs, rows = bin_and_rasterize(
-        setup, width, config, tiles_x, tile_rows, th, tw, tile_row0, vma, kind,
-        shade_rows=shade_rows,
+    _, it, pairs = bin_and_rasterize(
+        setup, config, tiles_x, tile_rows, th, tw, tile_row0, kind="cam"
     )
-    gbuf = select_interp_tiles(
-        rows, segs, it, tiles_x, tile_rows, th, tw, tile_row0,
-        chunk=config.select_chunk, vma=vma,
-    )
-    sublanes = th * tw // 128
-    num_tiles = tiles_x * tile_rows
-    # (T, sub, 128) -> (R, 128) is a free bitcast (consistent (8,128) tiling).
-    ibuf_tiles = it.reshape(num_tiles * sublanes, 128)
-    return ibuf_tiles, gbuf, pairs.total_pairs
+    ibuf_rows = it.reshape(-1, 128)
+    gbuf = resolve_gbuffer(shade_rows, ibuf_rows, tiles_x, th, tw, tile_row0)
+    return ibuf_rows, gbuf, pairs.total_pairs
 
 
 def bin_and_rasterize(
     setup: TriSetup,
-    width: int,
     config: RenderConfig,
     tiles_x: int,
     tile_rows: int,
     th: int,
     tw: int,
     tile_row0,
-    vma: tuple = (),
     kind: str = "cam",
     depth_only: bool = False,
-    shade_rows: Array | None = None,
     rect=None,
-    lut_rows: bool = False,
 ):
-    """Bin + tile-raster; returns tile-major (zt, it), the segment lists,
-    the pair stats, and the pair-ordered row table (for the fused shading
-    kernel). With depth_only NO ibuf is produced (it is None) — the shadow
-    pass discards it, so the kernel emits only the z planes (skipping the
-    slot-id select work and the 65 MB/frame ibuf write at 4000^2).
+    """Bin + tile-raster tile rows [tile_row0, tile_row0 + tile_rows).
 
-    With ``lut_rows`` (depth_only, tile_w == 64, tps even) zt is instead a
-    ROW-major (tile_rows * th, ceil(tiles_x/tps) * tps * 64) depth buffer —
-    the PCF window-LUT build's input layout, skipping the tile-unshuffle
-    transpose + retile copies (~0.5 ms/frame at 4000^2). Tile columns are
-    padded to a tps multiple so every grid step's tps tiles share one
-    output row-block; padded columns bin no pairs (the bbox clamp keeps
-    real tiles) and emit the 1.0 clear.
-
-    When ``shade_rows`` is given, the raster kernel streams the 128-lane
-    shade-row table itself (raster planes live at lanes [112:125)) — ONE
-    pair-order gather feeds both the raster and the select+interp kernel.
-    Otherwise a packed 16-lane table is built and gathered (shadow pass).
+    Returns tile-major (zt (T, S, 128) f32, it (T, S, 128) i32 or None,
+    pairs). With depth_only no slot ids are produced (the shadow pass
+    discards them). ``tile_row0`` may be traced (a device's slab offset).
     """
     assert (th * tw) % 128 == 0, "tile pixel count must fill whole lanes"
     num_tiles = tiles_x * tile_rows
-    sublanes = th * tw // 128
-    chunk = config.raster_chunk
+    sub = th * tw // 128
     pair_cap = config.pair_capacity(setup.capacity, kind)
-
     pairs = binning.bin_triangles(
         setup, tiles_x, tile_rows, tw, th, pair_cap, tile_row0=tile_row0,
         rect=rect,
@@ -938,128 +264,32 @@ def bin_and_rasterize(
             pairs.total_pairs,
             pair_cap,
         )
-    # Segments index the sorted pair list DIRECTLY (unaligned starts; the
-    # kernels DMA from the floored-8 row and mask leading rows) — the old
-    # align_segments re-layout cost a scatter + a 344k-row gather per pass.
-    # The DMA tail guard (up to `chunk` + 8 rows past a segment end) rides
-    # the gather itself via padded INDICES — a separate jnp.pad of the
-    # gathered rows cost ~0.7 ms/pass.
-    full_rows = shade_rows is not None
-    # DMA tail: the raster kernel reads up to `chunk`+8 rows past a segment
-    # end; the select kernel (which streams the same buffer) up to its own
-    # chunk size.
-    tail = chunk + 8 + (max(config.select_chunk - chunk, 0) if full_rows else 0)
-    tail = _round_up_8(tail)
-    idx = jnp.pad(pairs.sorted_slot, (0, tail))
-    if full_rows:
-        rows = shade_rows[idx]  # (pair_cap + tail, 128) streaming order
-    else:
-        comps, p_total = binning.raster_row_comps(setup)
-        # Pack 8 logical 16-f32 rows per 128-lane row for full-lane DMA —
-        # packed-table build + full-row gather + phase-resolve kernel (the
-        # direct (P,16) table[idx] gather pays 12-24 ns/row in any layout).
-        # (A pack-after-sort ordering tie was A/B'd on hardware and did
-        # NOT move the gather's 4.7 ns/row in-frame anomaly — reverted;
-        # docs/FLOORS.md "fusion.11".)
-        packed = pack_raster_rows_packed(comps, p_total, vma=vma)
-        rows = gather_pair_rows16(packed, idx, vma=vma)
-    row0_arr = jnp.asarray(tile_row0, jnp.int32).reshape(1)
+    seg_start = pairs.tile_start[:-1]
+    seg_len = jnp.diff(pairs.tile_start)
+    rows = raster_planes(setup)[pairs.sorted_slot]  # (pair_cap, 16) pair order
+    row0 = jnp.asarray(tile_row0, jnp.int32).reshape(1)
 
-    # Batch tiles per grid step to amortize per-step sequencing overhead
-    # (~1 us/step; the shadow pass has ~4k mostly-small tiles).
-    tps = config.tiles_per_step
-    if lut_rows:
-        assert depth_only and tw == 64 and tps % 2 == 0
-        # Pad tile COLUMNS to a tps multiple: each grid step's tps tiles
-        # then lie in one tile row and share one (th, tps*64) output block.
-        tiles_x_pad = -(-tiles_x // tps) * tps
-        steps_per_row = tiles_x_pad // tps
-        steps = tile_rows * steps_per_row
-        nt_pad = steps * tps
-        ts2 = pairs.tile_start[:-1].reshape(tile_rows, tiles_x)
-        sl2 = jnp.diff(pairs.tile_start).reshape(tile_rows, tiles_x)
-        seg_start = jnp.pad(ts2, ((0, 0), (0, tiles_x_pad - tiles_x))).reshape(-1)
-        seg_len = jnp.pad(sl2, ((0, 0), (0, tiles_x_pad - tiles_x))).reshape(-1)
-        grid_spec = pltpu.PrefetchScalarGridSpec(
-            num_scalar_prefetch=3,
-            grid=(steps,),
-            in_specs=[pl.BlockSpec(memory_space=pl.ANY)],
-            out_specs=[
-                pl.BlockSpec(
-                    (th, tps * 64),
-                    lambda i, *_, spr=steps_per_row: (i // spr, i % spr),
-                )
-            ],
-            scratch_shapes=[
-                pltpu.VMEM((tps, sublanes, 128), jnp.float32),
-                pltpu.SMEM(
-                    (2, chunk, 128) if full_rows else (2, chunk // 8, 128),
-                    jnp.float32,
-                ),
-                pltpu.SemaphoreType.DMA((2,)),
-            ],
-        )
-        kernel = functools.partial(
-            _raster_kernel, tiles_x=tiles_x_pad, tile_h=th, tile_w=tw,
-            chunk=chunk, depth_only=True, tps=tps, full_rows=full_rows,
-            lut_rows=True,
-        )
-        zflat = pl.pallas_call(
-            kernel,
-            grid_spec=grid_spec,
-            out_shape=[
-                jax.ShapeDtypeStruct(
-                    (tile_rows * th, tiles_x_pad * 64), jnp.float32,
-                    vma=frozenset(vma),
-                )
-            ],
-            interpret=_interpret(),
-        )(seg_start, seg_len, row0_arr, rows)[0]
-        return zflat, None, (seg_start, seg_len), pairs, rows
-
-    steps = -(-num_tiles // tps)
-    nt_pad = steps * tps
-    seg_start = jnp.pad(pairs.tile_start[:-1], (0, nt_pad - num_tiles))
-    seg_len = jnp.pad(jnp.diff(pairs.tile_start), (0, nt_pad - num_tiles))
-
-    out_spec = pl.BlockSpec((tps, sublanes, 128), lambda i, *_: (i, 0, 0))
-    # vma: varying mesh axes when called inside shard_map (each device
-    # rasterizes its own tile slab).
-    z_shape = jax.ShapeDtypeStruct(
-        (nt_pad, sublanes, 128), jnp.float32, vma=frozenset(vma)
-    )
-    i_shape = jax.ShapeDtypeStruct(
-        (nt_pad, sublanes, 128), jnp.int32, vma=frozenset(vma)
-    )
-    grid_spec = pltpu.PrefetchScalarGridSpec(
-        num_scalar_prefetch=3,
-        grid=(steps,),
-        in_specs=[pl.BlockSpec(memory_space=pl.ANY)],
-        # depth_only (shadow) kernels emit no ibuf at all — the caller
-        # discards it and the write alone was 65 MB/frame at 4000^2.
-        out_specs=[out_spec] if depth_only else [out_spec, out_spec],
-        scratch_shapes=[
-            pltpu.SMEM(
-                (2, chunk, 128) if full_rows else (2, chunk // 8, 128),
-                jnp.float32,
-            ),
-            pltpu.SemaphoreType.DMA((2,)),
-        ],
-    )
+    block = pl.BlockSpec((None, sub, 128), lambda t: (t, 0, 0))
+    z_shape = jax.ShapeDtypeStruct((num_tiles, sub, 128), jnp.float32)
+    i_shape = jax.ShapeDtypeStruct((num_tiles, sub, 128), jnp.int32)
     kernel = functools.partial(
-        _raster_kernel, tiles_x=tiles_x, tile_h=th, tile_w=tw, chunk=chunk,
-        depth_only=depth_only, tps=tps, full_rows=full_rows,
+        _raster_kernel, tiles_x=tiles_x, tile_h=th, tile_w=tw,
+        depth_only=depth_only,
     )
+    args = [seg_start, seg_len, row0, rows]
+    if not depth_only:
+        args.append(pairs.sorted_slot)
     out = pl.pallas_call(
         kernel,
-        grid_spec=grid_spec,
+        grid=(num_tiles,),
+        out_specs=[block] if depth_only else [block, block],
         out_shape=[z_shape] if depth_only else [z_shape, i_shape],
-        interpret=_interpret(),
-    )(seg_start, seg_len, row0_arr, rows)
+        name=f"raster_{kind}",
+        **pallas_route(num_warps=raster_warps(th * tw)),
+    )(*args)
     zt = out[0]
-    it = None if depth_only else out[1][:num_tiles]
-    segs = (seg_start, seg_len)
-    return zt[:num_tiles], it, segs, pairs, rows
+    it = None if depth_only else out[1]
+    return zt, it, pairs
 
 
 def rasterize_tiled(
@@ -1072,7 +302,6 @@ def rasterize_tiled(
     tile_row0=None,
     tile_rows: int | None = None,
     crop: bool = True,
-    vma: tuple = (),
     with_pairs: bool = False,
     kind: str = "cam",
     depth_only: bool = False,
@@ -1080,7 +309,7 @@ def rasterize_tiled(
 ) -> Tuple[Array, ...]:
     """Binned tiled rasterization; drop-in replacement for the brute force.
 
-    height/width define the *viewport* (NDC mapping and bbox clamp).  A
+    height/width define the *viewport* (NDC mapping and bbox clamp). A
     sharded caller can rasterize only tile rows [tile_row0, tile_row0 +
     tile_rows) of the frame: tile_row0 may be traced (shard offset),
     tile_rows must be static. With crop=False the padded tile-aligned
@@ -1093,9 +322,9 @@ def rasterize_tiled(
         tile_rows = -(-height // th)
     if tile_row0 is None:
         tile_row0 = 0
-    zt, it, _segs, pairs, _rows = bin_and_rasterize(
-        setup, width, config, tiles_x, tile_rows, th, tw, tile_row0, vma, kind,
-        depth_only, rect=rect,
+    zt, it, pairs = bin_and_rasterize(
+        setup, config, tiles_x, tile_rows, th, tw, tile_row0, kind, depth_only,
+        rect=rect,
     )
     zbuf = _untile(zt, tile_rows, tiles_x, th, tw)
     ibuf = None if it is None else _untile(it, tile_rows, tiles_x, th, tw)
@@ -1103,9 +332,8 @@ def rasterize_tiled(
         zbuf = zbuf[:height, :width]
         ibuf = None if ibuf is None else ibuf[:height, :width]
     if with_pairs:
-        # Overflowing pairs are silently floated to the sentinel tile and
-        # dropped; callers compare total_pairs against pair_cap to make the
-        # failure loud (VERDICT round 1: a broken frame must not ship a
-        # benchmark number).
+        # Overflowing pairs are floated to the sentinel tile and dropped;
+        # callers compare total_pairs against pair_cap to make the failure
+        # loud (a broken frame must not ship a benchmark number).
         return zbuf, ibuf, pairs.total_pairs
     return zbuf, ibuf

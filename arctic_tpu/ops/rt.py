@@ -4,13 +4,12 @@ The reference lists raytracing as an unimplemented roadmap item
 (README.md:19); BASELINE.json configs[4] asks for a "raytraced reference
 mode: BVH build + ray-triangle intersection replacing the rasterizer".
 
-TPU-first shape: the BVH is built once on the host (median split over
+Shape: the BVH is built once on the host (median split over
 centroids, binary, LEAF_SIZE triangles per leaf) and flattened in DFS
 *preorder* with skip pointers (a threaded BVH). Traversal then needs no
 per-ray stack: every ray holds one node cursor, and each lockstep iteration
 does one AABB slab test per ray and moves to `node + 1` (descend) or
-`skip[node]` (advance) — pure masked vector ops, which is the only way the
-VPU wants to run a tree walk. Leaves run Möller–Trumbore on a fixed-size
+`skip[node]` (advance) — pure masked vector ops that XLA fuses. Leaves run Möller–Trumbore on a fixed-size
 triangle block.
 """
 

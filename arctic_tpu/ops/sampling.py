@@ -10,7 +10,7 @@ with WRAP addressing applied per *texel* (each of the 4 taps wraps
 independently). All material textures live in one 2D atlas; wrap arithmetic
 happens in region-local texel space so each texture tiles within itself.
 
-TPU note: these are pure gathers + VPU lerps; XLA fuses the weight math into
+These are pure gathers + elementwise lerps; XLA fuses the weight math into
 the surrounding shader. sRGB decode happens at atlas build time
 (renderer.cpp:486 creates diffuse SRVs as R8G8B8A8_UNORM_SRGB, i.e. the
 hardware decodes *before* filtering — pre-decoding texels is equivalent).
@@ -134,8 +134,7 @@ def sample_quads_flat(quads, block_grid, ry, rx, rh, rw, u, v) -> Array:
     are same-shaped arrays (or scalars). Returns (..., C) lerped channels
     with no rank-raising reshapes — the fused channel-first shading path
     slices individual channels out, keeping every hot array's minor dim the
-    pixel dim (rank-5 (..., 4, n, 4) intermediates cost ~32 ms/frame in XLA
-    layout copies at 1080p).
+    pixel dim.
     """
     c = quads.shape[-1] // 4
     ry = jnp.asarray(ry).astype(jnp.int32)
@@ -168,10 +167,8 @@ def sample_quads_packed(
 ) -> Array:
     """sample_quads_flat against a dense 8-quads-per-128-lane-row table.
 
-    A (Q, 16) f32 quad table is tile-padded 16 -> 128 lanes by XLA (8x the
-    memory, so 2M-row gathers run HBM-latency-bound at ~17 ns/row); packing
-    8 quads per physical row makes the table dense and the same gather runs
-    at cache speed. The quad index q selects row q//8 and lane group q%8.
+    Packing 8 quads per 128-lane row keeps the table dense; the quad index q
+    selects row q//8 and lane group q%8.
     """
     c = channels
     ry = jnp.asarray(ry).astype(jnp.int32)
@@ -248,80 +245,30 @@ def linear_to_srgb(c: Array) -> Array:
     return jnp.where(c <= 0.0031308, c * 12.92, 1.055 * c ** (1.0 / 2.4) - 0.055)
 
 
-def _tap_resolve_kernel(
-    rows_ref, tq_ref, eq_ref, tfx_ref, tfy_ref, efx_ref, efy_ref, out_ref,
-    *, c4: int,
-):
-    """Per-pixel quad select + bilinear lerp for the merged texture+
-    environment gather, in VMEM.
+def tap_resolve(rows, tqk, eqk, tfx, tfy, efx, efy, c4: int):
+    """Quad select + bilinear lerp for the merged texture+environment gather.
 
-    The XLA form relayouted the gathered (P, 128) bf16 rows pixel-minor
-    (1.66 ms/frame at 1080p) and ran the tq%per / eq%8 slice selects as
-    strided fusions (~1.6 ms more).  Here the rows stay lane-minor: one
-    in-register f32 transpose per block turns every quad candidate into a
-    sublane slice, and only the lerped channels (c4/4 + 4 planes) leave.
-    Arithmetic matches sample_quads_flat/_packed exactly (convert bf16->f32
-    commutes with the selects, the lerp order is identical)."""
+    rows: (..., 128) gathered merged rows (bf16 or f32); the other inputs are
+    (...) per-pixel planes: tqk the texture quad's slot in its row, eqk the
+    environment quad's, and the two lerp weight pairs. Returns (16, ...) f32
+    channel planes: [0, c4/4) the lerped texture channels, [c4/4, c4/4+4)
+    the lerped environment RGBA, zero above. Arithmetic matches
+    sample_quads_flat/_packed exactly (the bf16->f32 convert commutes with
+    the selects; the lerp order is identical)."""
     per = 128 // c4
     c = c4 // 4
-    x = rows_ref[...].astype(jnp.float32)  # (bpx, 128)
-    xt = jnp.swapaxes(x, 0, 1)  # (128, bpx)
-    tq = tq_ref[...]  # (1, bpx) i32 in [0, per)
-    twin = xt[0:c4, :]
+    x = rows.astype(jnp.float32)
+    twin = x[..., 0:c4]
     for kk in range(1, per):
-        twin = jnp.where(tq == kk, xt[c4 * kk : c4 * (kk + 1), :], twin)
-    tfx = tfx_ref[...]
-    tfy = tfy_ref[...]
-    top = twin[0:c] + (twin[c : 2 * c] - twin[0:c]) * tfx
-    bot = twin[2 * c : 3 * c] + (twin[3 * c : 4 * c] - twin[2 * c : 3 * c]) * tfx
-    tex = top + (bot - top) * tfy  # (c, bpx)
-    eq = eq_ref[...]
-    ewin = xt[0:16, :]
+        twin = jnp.where((tqk == kk)[..., None], x[..., c4 * kk : c4 * (kk + 1)], twin)
+    tex = lerp_quad(twin, tfx, tfy)  # (..., c)
+    ewin = x[..., 0:16]
     for kk in range(1, 8):
-        ewin = jnp.where(eq == kk, xt[16 * kk : 16 * kk + 16, :], ewin)
-    efx = efx_ref[...]
-    efy = efy_ref[...]
-    etop = ewin[0:4] + (ewin[4:8] - ewin[0:4]) * efx
-    ebot = ewin[8:12] + (ewin[12:16] - ewin[8:12]) * efx
-    es = etop + (ebot - etop) * efy  # (4, bpx)
-    parts = [tex, es]
-    pad = 16 - (c + 4)
-    if pad:
-        parts.append(jnp.zeros((pad, x.shape[0]), jnp.float32))
-    out_ref[...] = jnp.concatenate(parts, axis=0).reshape(
-        16, x.shape[0] // 128, 128
-    )
-
-
-def tap_resolve(rows, tqk, eqk, tfx, tfy, efx, efy, c4: int, vma=()):
-    """(P, 128) gathered merged rows -> (16, P/128, 128) f32 channel planes
-    in the shading chain's pixel-block layout: lanes [0, c4/4) the lerped
-    texture channels, [c4/4, c4/4+4) the lerped environment RGBA.
-
-    The kernel emits the 3-D pixel-block layout directly: a (16, P) output
-    reshaped to (16, R, 128) by the caller tile-groups 8 CHANNELS per
-    (8, 128) tile while the consumer layout tiles 8 pixel-block rows — XLA
-    inserted a 134 MB relayout copy per frame (hlo_r5a copy.307, 0.40 ms)."""
-    import functools
-
-    from jax.experimental import pallas as pl
-    from jax.experimental.pallas import tpu as pltpu  # noqa: F401
-
-    p = rows.shape[0]
-    bpx = min(4096, p)
-    assert p % bpx == 0 and p % 128 == 0
-    args = [a.reshape(1, p) for a in (tqk, eqk, tfx, tfy, efx, efy)]
-    return pl.pallas_call(
-        functools.partial(_tap_resolve_kernel, c4=c4),
-        grid=(p // bpx,),
-        in_specs=[pl.BlockSpec((bpx, 128), lambda i: (i, 0))]
-        + [pl.BlockSpec((1, bpx), lambda i: (0, i))] * 6,
-        out_specs=pl.BlockSpec((16, bpx // 128, 128), lambda i: (0, i, 0)),
-        out_shape=jax.ShapeDtypeStruct(
-            (16, p // 128, 128), jnp.float32, vma=frozenset(vma)
-        ),
-        interpret=jax.default_backend() != "tpu",
-    )(rows, *args)
+        ewin = jnp.where((eqk == kk)[..., None], x[..., 16 * kk : 16 * kk + 16], ewin)
+    env = lerp_quad(ewin, efx, efy)  # (..., 4)
+    planes = [tex[..., i] for i in range(c)] + [env[..., i] for i in range(4)]
+    zero = jnp.zeros_like(tfx)
+    return jnp.stack(planes + [zero] * (16 - len(planes)), axis=0)
 
 
 def pack_tex_rows(combined_quads: Array) -> Array:
@@ -370,43 +317,28 @@ def tile_index(base, ntx, th, tw, u, v):
     return row, ys % TILE_SY, xs % TILE_SX, fx, fy
 
 
-def _tile_tap_resolve_kernel(
-    rows_ref, ty_ref, tx_ref, eq_ref, tfx_ref, tfy_ref, efx_ref, efy_ref,
-    out_ref,
-):
-    """Texture+environment resolve for the tile atlas, in VMEM.
+def tile_tap_resolve(rows, ty, tx, eqk, tfx, tfy, efx, efy):
+    """Texture+environment resolve for the tile atlas.
 
-    A gathered row is either a texture tile — lane ch2*32 + y*8 + x holds
-    u16 channels (2*ch2 | 2*ch2+1 << 16) of tile texel (y, x) — or an
-    environment row (8 bilinear quads of 16 f32 bit-viewed as i32). The
-    in-register transpose makes the (ty, tx) window select a sublane-slice
-    tree per channel pair (like _pcf_eval_kernel's candidate tree), texels
-    dequantize as q * (1/65535) (u16-linear storage: more precise than the
-    small-scene path's bf16 texels), and env lanes bitcast back to f32.
-    Emits (16, bpx): [0:8) texture channels, [8:12) env RGBA."""
-    x = rows_ref[...]  # (bpx, 128) i32
-    xt = jnp.swapaxes(x, 0, 1)  # (128, bpx)
-    ty = ty_ref[...]  # (1, bpx) in [0, 3)
-    tx = tx_ref[...]  # (1, bpx) in [0, 7)
-    tfx = tfx_ref[...]
-    tfy = tfy_ref[...]
+    A gathered (..., 128) i32 row is either a texture tile — lane
+    ch2*32 + y*8 + x holds u16 channels (2*ch2 | 2*ch2+1 << 16) of tile texel
+    (y, x) — or an environment row (8 bilinear quads of 16 f32 bit-viewed as
+    i32). (ty, tx) is the bilinear window's origin in the tile; texels
+    dequantize as q * (1/65535) and env lanes bitcast back to f32. Returns
+    (16, ...) f32 planes: [0:8) texture channels (diffuse RGB, normal XYZ,
+    mr G, mr B), [8:12) env RGBA, zero above."""
     dq = jnp.float32(1.0 / 65535.0)
+
+    def texel(y, x, c2):  # (...) i32 lane c2*32 + y*8 + x of each row
+        lane = c2 * 32 + y * 8 + x
+        return jnp.take_along_axis(rows, lane[..., None], axis=-1)[..., 0]
+
     outs = []
     for c2 in range(4):
-        block = xt[32 * c2 : 32 * c2 + 32]  # (32, bpx): lanes y*8 + x
-        # Window rows [ty*8 ..]: one 3-way select leaves 16 sublanes that
-        # contain every tx candidate (tx + 9 <= 15).
-        w16 = jnp.where(
-            ty == 0, block[0:16],
-            jnp.where(ty == 1, block[8:24], block[16:32]),
-        )
-        taps = []
-        for off in (0, 1, 8, 9):  # c00, c10, c01, c11
-            t = w16[off : off + 1]
-            for k in range(1, 7):
-                t = jnp.where(tx == k, w16[off + k : off + k + 1], t)
-            taps.append(t)
-        c00, c10, c01, c11 = taps
+        c00 = texel(ty, tx, c2)
+        c10 = texel(ty, tx + 1, c2)
+        c01 = texel(ty + 1, tx, c2)
+        c11 = texel(ty + 1, tx + 1, c2)
         for half in range(2):  # channels 2*c2 (low u16) and 2*c2+1 (high)
             def ch(v):
                 q = (v & 0xFFFF) if half == 0 else jax.lax.shift_right_logical(v, 16)
@@ -415,47 +347,13 @@ def _tile_tap_resolve_kernel(
             top = ch(c00) + (ch(c10) - ch(c00)) * tfx
             bot = ch(c01) + (ch(c11) - ch(c01)) * tfx
             outs.append(top + (bot - top) * tfy)
-    tex8 = jnp.concatenate(outs, axis=0)  # (8, bpx)
 
-    eq = eq_ref[...]
-    ewin_i = xt[0:16, :]
+    ewin = rows[..., 0:16]
     for kk in range(1, 8):
-        ewin_i = jnp.where(eq == kk, xt[16 * kk : 16 * kk + 16, :], ewin_i)
-    ewin = jax.lax.bitcast_convert_type(ewin_i, jnp.float32)
-    efx = efx_ref[...]
-    efy = efy_ref[...]
-    etop = ewin[0:4] + (ewin[4:8] - ewin[0:4]) * efx
-    ebot = ewin[8:12] + (ewin[12:16] - ewin[8:12]) * efx
-    env4 = etop + (ebot - etop) * efy
-    out_ref[...] = jnp.concatenate(
-        [tex8, env4, jnp.zeros((4, x.shape[0]), jnp.float32)], axis=0
-    ).reshape(16, x.shape[0] // 128, 128)
-
-
-def tile_tap_resolve(rows, ty, tx, eqk, tfx, tfy, efx, efy, vma=()):
-    """(P, 128) gathered tile/env rows -> (16, P/128, 128) f32 pixel-block
-    channel planes: [0:8) the material's texture channels (diffuse RGB,
-    normal XYZ, mr G, mr B), [8:12) env. 3-D output for the same relayout
-    reason as tap_resolve (hlo_r5a copy.307)."""
-    import functools  # noqa: F401
-
-    from jax.experimental import pallas as pl
-
-    p = rows.shape[0]
-    bpx = min(4096, p)
-    assert p % bpx == 0 and p % 128 == 0
-    args = [a.reshape(1, p) for a in (ty, tx, eqk, tfx, tfy, efx, efy)]
-    return pl.pallas_call(
-        _tile_tap_resolve_kernel,
-        grid=(p // bpx,),
-        in_specs=[pl.BlockSpec((bpx, 128), lambda i: (i, 0))]
-        + [pl.BlockSpec((1, bpx), lambda i: (0, i))] * 7,
-        out_specs=pl.BlockSpec((16, bpx // 128, 128), lambda i: (0, i, 0)),
-        out_shape=jax.ShapeDtypeStruct(
-            (16, p // 128, 128), jnp.float32, vma=frozenset(vma)
-        ),
-        interpret=jax.default_backend() != "tpu",
-    )(rows, *args)
+        ewin = jnp.where((eqk == kk)[..., None], rows[..., 16 * kk : 16 * kk + 16], ewin)
+    env = lerp_quad(jax.lax.bitcast_convert_type(ewin, jnp.float32), efx, efy)
+    zero = jnp.zeros_like(tfx)
+    return jnp.stack(outs + [env[..., i] for i in range(4)] + [zero] * 4, axis=0)
 
 
 def tile_row_groups(covered, gid_pix, n_groups: int):
@@ -485,7 +383,7 @@ def tile_row_groups(covered, gid_pix, n_groups: int):
 
 def tile_tap_resolve_grouped(
     tiles, groups, caps, trow, covered, eqd, gid_pix, g_lo, g_hi, many, aux,
-    vma=(), group_tables=None,
+    group_tables=None,
 ):
     """Compacted per-group tile/env gathers + tap resolve + row reassembly.
 
@@ -498,16 +396,14 @@ def tile_tap_resolve_grouped(
     (R, 128) planes tile_tap_resolve consumes (ty, tx, eq%8, tfx, tfy, efx,
     efy). Returns (out16 (16, R, 128) f32, fb_rows scalar).
 
-    Routing (tools/plan_tex_groups + probe_gather_cliff): a row claims
+    Routing (tools/plan_tex_groups, io.texplan): a row claims
     every group its covered pixels touch (at most two — the dual-claim;
     uncovered pixels ride along reading the claiming group's env copy).
-    Claimed rows are compacted per group (stable argsort — the
-    pcf_row_cap pattern, ops/shadow.py:909) and gather from the group's
-    materialized table. Rows touching >2 groups, or spilling ANY of
-    their claimed groups' caps, take a compacted full-table fallback.
-    NOTE (docs/FLOORS.md): in-frame the per-group tables are cache-COLD
-    and gathered 5-12 ns/row, so this route measured SLOWER than the
-    plain full-table gather on the bench — it stays opt-in.
+    Claimed rows are compacted per group (stable argsort) and gather from
+    the group's materialized table. Rows touching >2 groups, or spilling
+    ANY of their claimed groups' caps, take a compacted full-table
+    fallback. The route is opt-in; the plain full-table gather is the
+    default.
     Reassembly is a row permutation per claim plus a per-pixel select
     between a row's two claimed streams — every pixel sees bit-identical
     gather rows and aux values to the plain path, so the frame is
@@ -552,9 +448,8 @@ def tile_tap_resolve_grouped(
     outs = []
     for g in range(g_n):
         lo, env_base, hi = groups[g][:3]
-        # MUST be a materialized table, not tiles[lo:hi]: XLA fuses the
-        # slice into the gather, whose operand is then the full (slow-tier)
-        # table — measured 7-12 ns/row vs 1.8 (hlo_r5c textured).
+        # A materialized table, not tiles[lo:hi]: XLA fuses the slice into
+        # the gather, whose operand is then the full table.
         src = group_tables[g] if group_tables is not None else tiles[lo:hi]
         order = jnp.argsort(jnp.where(kepts[g], 0, 1), stable=True)[: caps[g]]
         # Per-part idx: covered pixels their tile row, uncovered this
@@ -562,14 +457,14 @@ def tile_tap_resolve_grouped(
         # (the OTHER group's pixels) clip to junk inside the slice — their
         # values are discarded by the reassembly select.
         idx_g = jnp.where(covered, trow - lo, (env_base - lo) + eqd)
-        cidx = jnp.clip(idx_g, 0, hi - lo - 1)[order].reshape(-1)
-        caux = [a[order].reshape(-1) for a in aux]
-        outs.append(tile_tap_resolve(src[cidx], *caux, vma=vma))
+        cidx = jnp.clip(idx_g, 0, hi - lo - 1)[order]
+        caux = [a[order] for a in aux]
+        outs.append(tile_tap_resolve(src[cidx], *caux))
     fb_order = jnp.argsort(jnp.where(fb, 0, 1), stable=True)[: caps[g_n]]
     idx_fb = jnp.where(covered, trow, groups[0][1] + eqd)
-    cidx = jnp.clip(idx_fb, 0, tiles.shape[0] - 1)[fb_order].reshape(-1)
-    caux = [a[fb_order].reshape(-1) for a in aux]
-    outs.append(tile_tap_resolve(tiles[cidx], *caux, vma=vma))
+    cidx = jnp.clip(idx_fb, 0, tiles.shape[0] - 1)[fb_order]
+    caux = [a[fb_order] for a in aux]
+    outs.append(tile_tap_resolve(tiles[cidx], *caux))
 
     stream = jnp.concatenate(outs, axis=1)  # (16, sum(caps), 128)
     offs = [0]

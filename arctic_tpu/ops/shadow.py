@@ -10,788 +10,22 @@ Quirks preserved deliberately (they are visible in the reference's output):
 - points outside the light frustum (z > 1 or uv outside [0,1]) return 0 (lit)
 - taps near the border can wrap to the opposite edge (WRAP addressing)
 
-TPU formulation: the 25 taps span ±0.8 texels + 1 texel bilinear support, so
-all taps read from one 4x4 texel window per pixel — we gather the window once
-(16 gathers instead of 100) and evaluate every bilinear tap arithmetically,
-bit-equivalent to 25 independent SampleLevel calls.
+Formulation: the 25 taps span +-0.8 texels + 1 texel bilinear support, so
+all taps read from one 4x4 texel window per pixel — the window is gathered
+once (four 4-texel runs) and every bilinear tap is evaluated arithmetically,
+equivalent to 25 independent SampleLevel calls.
 """
 
 from __future__ import annotations
 
-import functools
-
-import jax
 import jax.numpy as jnp
-from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
 
 Array = jnp.ndarray
 
 PCF_UV_STEP = 0.0001  # forward.hlsl:88
 
-# Layout-boundary fence placement in the LUT path: "r32" (default),
-# "rowfull", "block", or "none" — A/B'd on hardware by tools/probe_variants.
-PCF_FENCE = "r32"
 
-# Use the u16-quantized u32-packed window LUT (v3) on the TPU LUT path.
-# XLA gather cost is set by TABLE SIZE (~5.5 ns/row <= 96 MB, ~13.7 >= 126,
-# probe_gather2/probe_u32pack): quantizing depth to u16 and packing two
-# texels per 32-bit lane puts the 4000^2 window table at 92 MB — under the
-# cliff — for a ~2x cheaper per-pixel window gather. Depth error <= 7.7e-6
-# only flips PCF taps where |z - filtered depth| < ~1.5e-5 (silhouette
-# pixels); the f64-oracle PSNR gate in bench.py bounds the impact.
-PCF_QUANT = True
-
-
-def _round_up(x: int, m: int) -> int:
-    return (x + m - 1) // m * m
-
-
-def _select_mats() -> jnp.ndarray:
-    """(8, 128, 1024) 0/1 selection matrices: S[r, 8m+wc, 64m+8r+wc] = 1.
-
-    A (M, 128) @ (128, 1024) matmul with S[r] scatters each 128-column
-    source block's texels into its 16 stride-8 8x8 blocks' 64-lane groups
-    at block-row r — a lane interleave done on the MXU. Each output lane
-    receives exactly ONE input, so the result is bit-exact even through the
-    multi-pass bf16-split matmul (a 24-bit mantissa splits exactly into
-    three bf16 passes; x*1 and the non-overlapping adds are exact).
-
-    Stored f32: Mosaic faults on this kernel when the VMEM operand is held
-    in bf16 and upcast in-kernel (observed as a TPU worker crash); the
-    kernel downcasts in-kernel instead — the 0/1 entries convert exactly.
-    """
-    import numpy as np
-
-    s = np.zeros((8, 128, 1024), np.float32)
-    for r in range(8):
-        for m in range(16):
-            for wc in range(8):
-                s[r, 8 * m + wc, 64 * m + 8 * r + wc] = 1.0
-    return jnp.asarray(s)
-
-
-def _lut_kernel(in2_hbm, smat_ref, out_ref, slab, sems, *, xb: int, jb_count: int):
-    # One step builds 8x8 blocks for 8 consecutive qy rows (40 shared
-    # source rows), BOTH x-parities (blocks at 8k and 8k+4 — each from its
-    # own shifted source view so every block is lane-aligned in its slab).
-    # The two parity accs lane-concatenate into full 128-lane output rows
-    # (Mosaic rejects 64-lane-offset stores). Slab DMAs are
-    # double-buffered across grid steps.
-    q = pl.program_id(0)
-    jb = pl.program_id(1)
-    step = q * jb_count + jb
-    total = pl.num_programs(0) * jb_count
-    slot = jax.lax.rem(step, 2)
-
-    def dma(st, sl, sx):
-        jbb = jax.lax.rem(st, jb_count)
-        qq = st // jb_count
-        return pltpu.make_async_copy(
-            in2_hbm.at[sx, pl.ds(128 * qq + 32 * jbb, 40)],
-            slab.at[sl, sx],
-            sems.at[sl, sx],
-        )
-
-    @pl.when(step == 0)
-    def _():
-        dma(step, slot, 0).start()
-        dma(step, slot, 1).start()
-
-    @pl.when(step + 1 < total)
-    def _():
-        dma(step + 1, 1 - slot, 0).start()
-        dma(step + 1, 1 - slot, 1).start()
-
-    dma(step, slot, 0).wait()
-    dma(step, slot, 1).wait()
-
-    # Stack g block-rows per matmul so M = g * xb fills the systolic array.
-    g = max(1, min(8, 128 // xb))
-    while 8 % g:
-        g -= 1
-    for j0 in range(0, 8, g):
-        accs = []
-        for sx in range(2):
-            acc = jnp.zeros((g * xb, 1024), jnp.float32)
-            for r in range(8):
-                x = jnp.concatenate(
-                    [slab[slot, sx, 4 * (j0 + jj) + r] for jj in range(g)],
-                    axis=0,
-                )  # (g * xb, 128)
-                # Manual 3-way bf16 split of the f32 depths (24-bit
-                # mantissa = 3 x 8 bits, exact; the one-hot smat is exact
-                # in bf16 and each output lane receives exactly one
-                # product) — bit-identical to Precision.HIGHEST at half
-                # its MXU passes (3 vs 6).
-                hi = x.astype(jnp.bfloat16)
-                r1 = x - hi.astype(jnp.float32)
-                mid = r1.astype(jnp.bfloat16)
-                lo = (r1 - mid.astype(jnp.float32)).astype(jnp.bfloat16)
-                smat_bf16 = smat_ref[r].astype(jnp.bfloat16)
-                for part in (hi, mid, lo):
-                    acc = acc + jax.lax.dot_general(
-                        part,
-                        smat_bf16,
-                        dimension_numbers=(((1,), (0,)), ((), ())),
-                        preferred_element_type=jnp.float32,
-                    )
-            accs.append(acc)
-        # Emit in the consumer's final gather layout directly: row within
-        # the frame = qy * 16xb + m * xb + bx; lanes [0:64) = even-parity
-        # block, [64:128) = odd (see window_row_index).
-        for jj in range(g):
-            for m in range(16):
-                out_ref[0, pl.ds((j0 + jj) * 16 * xb + m * xb, xb), :] = (
-                    jnp.concatenate(
-                        [
-                            accs[0][jj * xb : (jj + 1) * xb, 64 * m : 64 * m + 64],
-                            accs[1][jj * xb : (jj + 1) * xb, 64 * m : 64 * m + 64],
-                        ],
-                        axis=1,
-                    )
-                )
-
-
-def window_row_index(start_y, start_x, xb: int):
-    """Packed-LUT location of the window at padded coords (y, x).
-
-    The LUT stores stride-4-aligned 8x8 texel blocks (two per 128-lane
-    row); a 4x4 window at ANY start always fits its aligned block
-    (start % 4 <= 3, so 3 + 4 <= 7). Returns (row, k2, yoff, xoff): the
-    window's block is at lanes [64*k2, +64) (laid out wr*8+wc), and the
-    window reads block rows [yoff, yoff+4) x cols [xoff, xoff+4).
-    Mirrors the _lut_kernel store order: row = qy*16xb + (qx//2 % 16)*xb
-    + qx//32 with qy = y//4, qx = x//4.
-    """
-    qy = start_y // 4
-    qx = start_x // 4
-    row = qy * 16 * xb + ((qx // 2) % 16) * xb + qx // 32
-    return row, qx % 2, start_y % 4, start_x % 4
-
-
-def build_window_lut(shadow_map: Array) -> tuple[Array, int]:
-    """Aligned 8x8 texel blocks of the (wrap-padded) shadow map, 2 per
-    128-lane row.
-
-    Returns (lut (N, 128) f32, xb): any 4x4 PCF window fits inside its
-    stride-4-aligned 8x8 block, so ONE 512 B row gather serves every pixel
-    with a quarter of the old per-window-phase table (268 MB vs 1 GB at
-    4000^2 — the old 16-phase-class layout stored each texel 16x). Built
-    by an MXU lane-interleave Pallas kernel directly in the gather layout
-    (XLA's transpose-based construction costs ~170 ms/frame).
-    """
-    s = shadow_map.shape[0]
-    sp = s + 4
-    padded = jnp.pad(shadow_map, 2, mode="wrap")
-    # 128-column source blocks, rounded up to a multiple of 8: the kernel's
-    # HBM->VMEM slab second-minor dim must be 8-aligned (f32 VMEM tiles are
-    # (8, 128); a mismatched DMA crashes the TPU worker).
-    xb = _round_up(-(-(sp + 3) // 128), 8)
-    qn = s // 4 + 1  # block count per dim (window starts are in [0, s])
-    sq8 = -(-qn // 32)
-    jb_count = 4  # 8 qy rows per grid step
-    yp = 128 * sq8 + 16
-    padded2 = jnp.pad(padded, ((0, yp - sp), (0, xb * 128 + 7 - sp)))
-    # Two x-parity views (blocks at 8k / 8k+4), 128 cols per MXU block.
-    in2 = jnp.stack(
-        [padded2[:, 4 * sx : 4 * sx + xb * 128].reshape(yp, xb, 128) for sx in range(2)]
-    )
-
-    lut = pl.pallas_call(
-        functools.partial(_lut_kernel, xb=xb, jb_count=jb_count),
-        grid=(sq8, jb_count),
-        in_specs=[
-            pl.BlockSpec(memory_space=pl.ANY),
-            pl.BlockSpec(
-                (8, 128, 1024), lambda *_: (0, 0, 0), memory_space=pltpu.VMEM
-            ),
-        ],
-        out_specs=pl.BlockSpec(
-            (1, 8 * 16 * xb, 128), lambda q, jb: (q * jb_count + jb, 0, 0)
-        ),
-        out_shape=jax.ShapeDtypeStruct(
-            # vma: the shadow map is replicated under shard_map (all-
-            # gathered before PCF), so the LUT is unvarying on every axis.
-            (sq8 * jb_count, 8 * 16 * xb, 128), jnp.float32, vma=frozenset()
-        ),
-        scratch_shapes=[
-            pltpu.VMEM((2, 2, 40, xb, 128), jnp.float32),
-            pltpu.SemaphoreType.DMA((2, 2)),
-        ],
-        interpret=jax.default_backend() != "tpu",
-    )(in2, _select_mats())
-    return lut.reshape(-1, 128), xb
-
-
-def _select_mats_q() -> jnp.ndarray:
-    """(2, 8, 128, 512) 0/1 matrices for the quantized LUT's lane scatter.
-
-    A 128-col source chunk holds 16 blocks of 8 texels (stride-4 x-parity
-    views exactly as in _select_mats). Block rows are 4 u32 lanes wide
-    (two u16 texels per lane), so row r of block m lands at dst lanes
-    [32m + 4r, +4): S[0] (even texels, lane low half) has
-    S[0][r][8m + 2c, 32m + 4r + c] = 1 and S[1] (odd texels, high half)
-    S[1][r][8m + 2c + 1, 32m + 4r + c] = 1 — the u32 pack then needs NO
-    lane shuffle: packed = q_even | q_odd << 16 elementwise.
-    """
-    import numpy as np
-
-    s = np.zeros((2, 8, 128, 512), np.float32)
-    for r in range(8):
-        for m in range(16):
-            for c in range(4):
-                s[0, r, 8 * m + 2 * c, 32 * m + 4 * r + c] = 1.0
-                s[1, r, 8 * m + 2 * c + 1, 32 * m + 4 * r + c] = 1.0
-    return jnp.asarray(s)
-
-
-def _lut_kernel_q(yb_ref, in1_hbm, smat_ref, out_ref, slab, sems, *, xb: int):
-    # One grid step builds the 16-row blocks for 4 consecutive qy rows
-    # (y-stride 12 -> 48 shared source rows + 16-row block tail = 56-row
-    # slab, 8-aligned starts at 48*step). Each block is built in two 8-row
-    # halves (h) that REUSE the same one-hot matrices on different source
-    # rows, keeping smat at 2 MB of VMEM. Per (sx, h): even/odd texel
-    # accumulators (4xb, 512) -> quantize to u16 range and pack two texels
-    # per i32 lane elementwise (Mosaic has no f32->u32 cast; the i32 bit
-    # pattern is identical and consumers use logical shifts).
-    #
-    # The input is ONE unshifted (yp, xb, 128) view of the padded map; the
-    # stride-4 x-parity view (sx == 1) is derived in-register by a 4-lane
-    # shift with an xb-chunk carry. The second pre-shifted HBM copy this
-    # replaces cost a 139 MB pad/stack chain + relayout copies per frame
-    # (~1.0 ms) and doubled the slab DMA traffic.
-    step = pl.program_id(0) * pl.num_programs(1) + pl.program_id(1)
-    total = pl.num_programs(0) * pl.num_programs(1)
-    slot = jax.lax.rem(step, 2)
-
-    # Sun-frustum y-skip (ops/cull.py rect): a step builds blocks for
-    # window start_y in [48*step, 48*step+48); steps whose range cannot be
-    # read by any shaded pixel skip their DMA + MXU work entirely (their
-    # output blocks keep garbage — those rows are never gathered). The
-    # step's own DMA is started by step-1's prefetch, which is gated on
-    # the NEXT step's range, so skipped steps break no pipelining.
-    def in_range(st):
-        return (48 * st <= yb_ref[1]) & (48 * st + 48 > yb_ref[0])
-
-    def dma(st, sl):
-        return pltpu.make_async_copy(
-            in1_hbm.at[pl.ds(48 * st, 56)],
-            slab.at[sl],
-            sems.at[sl],
-        )
-
-    @pl.when((step == 0) & in_range(0))
-    def _():
-        dma(step, slot).start()
-
-    @pl.when((step + 1 < total) & in_range(step + 1))
-    def _():
-        dma(step + 1, 1 - slot).start()
-
-    @pl.when(in_range(step))
-    def _():
-        dma(step, slot).wait()
-        _lut_step_q(smat_ref, out_ref, slab, slot, xb=xb)
-
-
-def _lut_step_q(smat_ref, out_ref, slab, slot, *, xb: int):
-    def shift4(v):  # (xb, 128): columns of the flat (xb*128) row moved -4
-        carry = jnp.concatenate([v[1:, 0:4], jnp.zeros((1, 4), v.dtype)], axis=0)
-        return jnp.concatenate([v[:, 4:], carry], axis=1)
-
-    packed = []  # [sx][h] -> (4 * xb, 512) i32
-    for sx in range(2):
-        per_h = []
-        for h in range(2):
-            # Quantize BEFORE the scatter matmul: the output is u16 anyway,
-            # and a u16 integer splits exactly into two 8-bit bf16 halves —
-            # 2 MXU passes per (eo, r) instead of the 3-way f32 mantissa
-            # split (floor(clip(x*65535+0.5)) here == the old post-matmul
-            # clip+truncate on the exact scattered f32, bit-identical).
-            accs = [
-                [jnp.zeros((4 * xb, 512), jnp.float32) for _ in range(2)]
-                for _ in range(2)
-            ]  # accs[eo][part]
-            for r in range(8):
-                # Slab rows are flat (xb*128,) (the 2-D slab avoids the
-                # 65 MB (yp, xb, 128) retile copy); reshape in-register.
-                base = [
-                    slab[slot, 12 * jj + 8 * h + r].reshape(xb, 128)
-                    for jj in range(4)
-                ]
-                x = jnp.concatenate(
-                    base if sx == 0 else [shift4(v) for v in base],
-                    axis=0,
-                )  # (4 * xb, 128)
-                xq = jnp.floor(jnp.clip(x * 65535.0 + 0.5, 0.0, 65535.0))
-                hi8 = jnp.floor(xq * (1.0 / 256.0))  # exact: /2^8 on ints
-                lo8 = xq - hi8 * 256.0
-                parts = (hi8.astype(jnp.bfloat16), lo8.astype(jnp.bfloat16))
-                for eo in range(2):
-                    smat_bf16 = smat_ref[eo, r].astype(jnp.bfloat16)
-                    for pi in range(2):
-                        accs[eo][pi] = accs[eo][pi] + jax.lax.dot_general(
-                            parts[pi],
-                            smat_bf16,
-                            dimension_numbers=(((1,), (0,)), ((), ())),
-                            preferred_element_type=jnp.float32,
-                        )
-            q_e = (accs[0][0] * 256.0 + accs[0][1]).astype(jnp.int32)
-            q_o = (accs[1][0] * 256.0 + accs[1][1]).astype(jnp.int32)
-            per_h.append(q_e | (q_o << 16))
-        packed.append(per_h)
-
-    # Row layout: lanes [0:32) sx0 rows 0-7, [32:64) sx0 rows 8-15,
-    # [64:96) sx1 rows 0-7, [96:128) sx1 rows 8-15 (see window_row_index_q).
-    for jj in range(4):
-        for m in range(16):
-            out_ref[0, pl.ds(jj * 16 * xb + m * xb, xb), :] = jnp.concatenate(
-                [
-                    packed[sx][h][jj * xb : (jj + 1) * xb, 32 * m : 32 * m + 32]
-                    for sx in range(2)
-                    for h in range(2)
-                ],
-                axis=1,
-            )
-
-
-def window_row_index_q(start_y, start_x, xb: int):
-    """Quantized-LUT location of the window at padded coords (y, x).
-
-    x geometry is identical to window_row_index (stride-4 parity blocks,
-    16 pairs per 128-col chunk). y blocks are 16 texel rows at stride 12:
-    qy = y // 12, yoff = y % 12 in [0, 11], so the 4-row window always
-    fits (11 + 4 <= 16 with no clamp). Returns (row, k2, yoff, xoff).
-    """
-    qy = start_y // 12
-    yoff = start_y - 12 * qy
-    qx = start_x // 4
-    row = qy * 16 * xb + ((qx // 2) % 16) * xb + qx // 32
-    return row, qx % 2, yoff, start_x % 4
-
-
-def build_window_lut_q(
-    shadow_map: Array | None,
-    y_range: Array | None = None,
-    raw_flat: Array | None = None,
-    map_size: int | None = None,
-) -> tuple[Array, int]:
-    """u16-quantized, u32-packed window LUT: 16-row x 8-texel blocks at
-    y-stride 12 / x-stride 4, two per 128-lane i32 row.
-
-    Returns (lut (N, 128) i32, xb). Every 4x4 PCF window fits one block
-    (yoff <= 11, xoff <= 3), so one 512 B row gather serves each pixel —
-    same access pattern as build_window_lut but the table is 92 MB at
-    4000^2 instead of 268 MB, under the ~96 MB gather cliff (~5.5 vs
-    ~13.7 ns/row, tools/probe_u32pack). Depth quantization: round-to-
-    nearest u16 in [0, 1], dequantized as q * (1 / 65535) by the reader.
-
-    ``y_range`` ((2,) i32, [min, max] inclusive window start_y): grid steps
-    whose 48-row start_y band misses the range skip their DMA + MXU work
-    and leave GARBAGE in their output rows — the caller guarantees no
-    consumed pixel gathers a row outside the range (pipeline: the
-    sun-frustum cull rect bounds every shaded pixel's start_y). None
-    builds the full table.
-
-    ``raw_flat`` (with ``map_size``): a ROW-major depth buffer straight
-    from the lut_rows shadow raster (rows >= map_size / cols >= map_size
-    junk) — replaces the untiled (S, S) map without the untile copies;
-    identical values, identical LUT.
-    """
-    if raw_flat is not None:
-        s = map_size
-        src = raw_flat[:s, :s]
-    else:
-        s = shadow_map.shape[0]
-        src = shadow_map
-    sp = s + 4
-    padded = jnp.pad(src, 2, mode="wrap")
-    xb = _round_up(-(-(sp + 3) // 128), 8)
-    qn_y = s // 12 + 1  # window start_y in [0, s]
-    jb_count = 8
-    sqg = -(-qn_y // (4 * jb_count))
-    total_steps = sqg * jb_count
-    yp = 48 * total_steps + 8
-    # ONE unshifted padded view; the kernel derives the stride-4 x-parity
-    # view in-register (columns past xb*128 are zero pad — sp << xb*128 —
-    # so the shift's tail carry of zeros matches the old wider pad). The
-    # slab stays 2-D ((yp, xb*128)): reshaping to (yp, xb, 128) retiles
-    # the 65 MB buffer (8 xb-chunks per tile vs 8 rows — hlo_r5a copy.308);
-    # the kernel reshapes each loaded row in-register instead.
-    in1 = jnp.pad(padded, ((0, yp - sp), (0, xb * 128 - sp)))
-
-    if y_range is None:
-        y_range = jnp.asarray([0, s], jnp.int32)
-    grid_spec = pltpu.PrefetchScalarGridSpec(
-        num_scalar_prefetch=1,
-        grid=(sqg, jb_count),
-        in_specs=[
-            pl.BlockSpec(memory_space=pl.ANY),
-            pl.BlockSpec(
-                (2, 8, 128, 512), lambda *_: (0, 0, 0, 0), memory_space=pltpu.VMEM
-            ),
-        ],
-        out_specs=pl.BlockSpec(
-            (1, 4 * 16 * xb, 128), lambda q, jb, *_: (q * jb_count + jb, 0, 0)
-        ),
-        scratch_shapes=[
-            pltpu.VMEM((2, 56, xb * 128), jnp.float32),
-            pltpu.SemaphoreType.DMA((2,)),
-        ],
-    )
-    lut = pl.pallas_call(
-        functools.partial(_lut_kernel_q, xb=xb),
-        grid_spec=grid_spec,
-        out_shape=jax.ShapeDtypeStruct(
-            # vma: replicated under shard_map, like build_window_lut.
-            (total_steps, 4 * 16 * xb, 128), jnp.int32, vma=frozenset()
-        ),
-        interpret=jax.default_backend() != "tpu",
-    )(y_range.astype(jnp.int32), in1, _select_mats_q())
-    return lut.reshape(-1, 128), xb
-
-
-def lut_q_xb(s: int) -> int:
-    """Static x-block count of the quantized window LUT for an (s, s) map
-    (the xb build_window_lut_q returns), for consumers of a cached LUT."""
-    return _round_up(-(-(s + 4 + 3) // 128), 8)
-
-
-def pyramid_meta(s: int):
-    """Static (level, offset, width) triples of build_shadow_pyramid(s)."""
-    sp = s + 4
-    n = -(-sp // 4)
-    meta = []
-    off = 0
-    level = 2
-    while True:
-        meta.append((level, off, n))
-        off += n * n
-        if n == 1:
-            return tuple(meta)
-        n = -(-n // 2)
-        level += 1
-
-
-def build_shadow_pyramid(shadow_map: Array):
-    """Dilated min/max pyramid of the wrap-padded shadow map, u16-quantized
-    and packed (min | max << 16) into one flat i32 table.
-
-    Levels l = 2..top have cells of 2^l padded-map texels; each stored cell
-    is DILATED (the min/max over the 2x2 cell neighborhood [cy, cy+1] x
-    [cx, cx+1], edge-clamped), so any texel bbox that spans <= 2 cells per
-    axis at level l is bounded by the SINGLE cell (y0 >> l, x0 >> l) — one
-    scalar gather per query. Quantization is floor(clip(x*65535+0.5)), the
-    exact transform build_window_lut_q applies, and it is monotone, so
-    min/max commute with it: the packed bounds are exact bounds on the
-    quantized texels every PCF tap bilinearly filters.
-
-    Returns (table (N,) i32, meta) with meta a static tuple of
-    (level, offset, width) triples, finest first.
-    """
-    s = shadow_map.shape[0]
-    sp = s + 4
-    padded = jnp.pad(shadow_map, 2, mode="wrap")
-
-    def pool4(a, op, fill):
-        m = -(-sp // 4) * 4
-        p = jnp.pad(a, ((0, m - sp), (0, m - sp)), constant_values=fill)
-        return op(p.reshape(m // 4, 4, m // 4, 4), axis=(1, 3))
-
-    def pool2(a, op, fill):
-        n = a.shape[0]
-        if n % 2:
-            a = jnp.pad(a, ((0, 1), (0, 1)), constant_values=fill)
-            n += 1
-        return op(a.reshape(n // 2, 2, n // 2, 2), axis=(1, 3))
-
-    def dilate(a, op2):
-        # min/max with the next cell per axis, edge-replicated: cell c then
-        # bounds cells [c, c+1] — and a query only reads c+1 when it exists.
-        a = op2(a, jnp.concatenate([a[1:], a[-1:]], axis=0))
-        return op2(a, jnp.concatenate([a[:, 1:], a[:, -1:]], axis=1))
-
-    def quant(x):
-        return jnp.floor(jnp.clip(x * 65535.0 + 0.5, 0.0, 65535.0)).astype(jnp.int32)
-
-    mins = [pool4(padded, jnp.min, 2.0)]
-    maxs = [pool4(padded, jnp.max, -1.0)]
-    while mins[-1].shape[0] > 1:
-        mins.append(pool2(mins[-1], jnp.min, 2.0))
-        maxs.append(pool2(maxs[-1], jnp.max, -1.0))
-
-    meta = pyramid_meta(s)
-    parts = []
-    for (level, off, n), mn, mx in zip(meta, mins, maxs):
-        packed = quant(dilate(mn, jnp.minimum)) | (
-            quant(dilate(mx, jnp.maximum)) << 16
-        )
-        assert packed.shape[0] == n, (packed.shape, n, level)
-        parts.append(packed.reshape(-1))
-    return jnp.concatenate(parts), meta
-
-
-def classify_pcf_rows(table, meta, start_y, start_x, z, care, sub=4, corners=2):
-    """Conservative PCF classification per 128/sub-pixel lane group.
-
-    start_y/start_x: (R, 128) padded-coords window origins (each pixel reads
-    texels [start, start+4) per axis); z: (R, 128) receiver depths; care:
-    (R, 128) pixels whose PCF value is consumed. Returns (lit, shd):
-    (R, sub) bools — a lit group has EVERY care pixel's 25 taps pass
-    (shadow raw 0.0), a shd group every tap fail (raw 25.0), both provable
-    from the pyramid bounds with a half-quantization-step margin that
-    swamps the tap loop's f32 lerp rounding (<= ~1e-6 vs 0.5/65535 =
-    7.6e-6). Groups with no care pixels classify lit (their values are
-    never consumed).
-
-    ``sub`` splits each row into sub lane groups classified independently
-    (tighter bboxes; a row mixing fully-lit and fully-shadowed groups still
-    classifies). ``corners`` cells are queried per axis at stride 2 (each
-    dilated cell covers 2): fit requires the bbox to span <= 2 * corners
-    cells, so corners=2 picks a level ~1 finer than corners=1 — 4 gathers
-    for ~2x tighter bounds per axis (probe_penumbra measures the rates).
-    """
-    r = start_y.shape[0]
-    g = 128 // sub
-    n = r * sub
-
-    def rs(a):
-        return a.reshape(n, g)
-
-    care = rs(care)
-    sy = rs(start_y)
-    sx = rs(start_x)
-    z = rs(z)
-    big = jnp.int32(1 << 30)
-    y0 = jnp.min(jnp.where(care, sy, big), axis=1)
-    y1 = jnp.max(jnp.where(care, sy, -1), axis=1) + 3
-    x0 = jnp.min(jnp.where(care, sx, big), axis=1)
-    x1 = jnp.max(jnp.where(care, sx, -1), axis=1) + 3
-    z_hi = jnp.max(jnp.where(care, z, -jnp.inf), axis=1)
-    z_lo = jnp.min(jnp.where(care, z, jnp.inf), axis=1)
-
-    # Finest level whose corners-cell dilated footprint covers the bbox.
-    span = 2 * corners - 1
-    idxs = [None] * (corners * corners)
-    have = None
-    for level, off, width in meta:
-        fits = ((y1 >> level) - (y0 >> level) <= span) & (
-            (x1 >> level) - (x0 >> level) <= span
-        )
-        cy0 = y0 >> level
-        cx0 = x0 >> level
-        nm1 = width - 1
-        for i in range(corners):
-            for j in range(corners):
-                cy = jnp.minimum(cy0 + 2 * i, nm1)
-                cx = jnp.minimum(cx0 + 2 * j, nm1)
-                idx_l = off + cy * width + cx
-                k = i * corners + j
-                idxs[k] = (
-                    idx_l if have is None else jnp.where(have, idxs[k], idx_l)
-                )
-        have = fits if have is None else have | fits
-
-    qmin = jnp.full((n,), 65536.0, jnp.float32)
-    qmax = jnp.full((n,), -1.0, jnp.float32)
-    for idx in idxs:
-        v = table[jnp.clip(idx, 0, table.shape[0] - 1)]
-        qmin = jnp.minimum(qmin, (v & 0xFFFF).astype(jnp.float32))
-        qmax = jnp.maximum(
-            qmax, jax.lax.shift_right_logical(v, 16).astype(jnp.float32)
-        )
-    dq = jnp.float32(1.0 / 65535.0)
-    lit = z_hi < (qmin - 0.5) * dq
-    shd = z_lo > (qmax + 0.5) * dq
-    return lit.reshape(r, sub), (shd & ~lit).reshape(r, sub)
-
-
-def effective_row_cap(pn: int, row_cap: int) -> int:
-    """The compacted-path row capacity actually compiled for ``pn`` pixels
-    (rounded to the Pallas block multiple, clamped to the row count)."""
-    rows = (pn + (-pn % 4096)) // 128
-    return min(rows, -(-row_cap // 32) * 32)
-
-
-def _pcf_resolve_kernel(rows_ref, cand_ref, xoff_ref, out_ref):
-    """Window resolve for the quantized LUT: (bpx, 128) i32 gathered rows +
-    per-pixel candidate (64 k2 + 4 yoff lane offset, as index k2 * 12 + yoff)
-    and xoff -> the 16 dequantized window texels as (16, bpx) f32 planes.
-
-    In XLA this chain cost 11 ms/frame at 1080p: the gather result was
-    relayouted pixel-minor (3.28 ms copy), then a 24-candidate select fusion
-    read 1.5 KB/px of strided slices (4.47 ms).  Here the rows stay
-    lane-minor, one in-register transpose per block makes every candidate a
-    sublane slice, and only 64 B/px leaves the kernel (measured 5.0 ms for
-    2.09M px standalone, tools/probe_pcf_resolve)."""
-    x = rows_ref[...]  # (bpx, 128) i32
-    xt = jnp.swapaxes(x, 0, 1)  # (128, bpx): lanes -> sublanes
-    c = cand_ref[...]  # (1, bpx)
-    xo = xoff_ref[...]
-    r16 = xt[0:16, :]
-    for k in range(1, 24):
-        h, yy = divmod(k, 12)
-        o = 64 * h + 4 * yy
-        r16 = jnp.where(c == k, xt[o : o + 16, :], r16)
-    dq = jnp.float32(1.0 / 65535.0)
-    lo = (r16 & 0xFFFF).astype(jnp.float32) * dq  # texel 2c of row r, lane 4r+c
-    hi = jax.lax.shift_right_logical(r16, 16).astype(jnp.float32) * dq
-    podd = (xo & 1) == 1
-    q1 = (xo >> 1) == 1
-    # Texel xoff + j = 2 (q + (j + p) // 2) + ((j + p) & 1) with p = xoff & 1,
-    # q = xoff >> 1: even xoff reads plane j % 2 at 4r + q + j // 2, odd the
-    # OTHER plane at 4r + q + (j + 1) // 2 — sublane slices, no interleave.
-    for r in range(4):
-        for j in range(4):
-            a_pl, b_pl = ((lo, hi), (hi, lo))[j % 2]
-            ja, jb = j // 2, (j + 1) // 2
-            a = jnp.where(
-                q1, a_pl[4 * r + ja + 1 : 4 * r + ja + 2, :],
-                a_pl[4 * r + ja : 4 * r + ja + 1, :],
-            )
-            b = jnp.where(
-                q1, b_pl[4 * r + jb + 1 : 4 * r + jb + 2, :],
-                b_pl[4 * r + jb : 4 * r + jb + 1, :],
-            )
-            out_ref[4 * r + j : 4 * r + j + 1, :] = jnp.where(podd, b, a)
-
-
-def _pcf_eval_kernel(
-    rows_ref, k2_ref, yoff_ref, xoff_ref, z_ref, lx_ref, ly_ref, out_ref,
-    *, step: float,
-):
-    """Window resolve + full 25-tap PCF evaluation in one kernel.
-
-    Extends _pcf_resolve_kernel: instead of emitting the 16 window texel
-    planes (64 B/px written + re-read by the XLA tap loop), the tap loop
-    runs right here on the in-register planes and only the 4 B/px shadow
-    fraction leaves. The candidate select is a (k2, yoff>>2, yoff&3) tree
-    (1x64 + 2x28 + 3x16 sublane-rows of selects vs the 23x16 linear chain).
-    Arithmetic is identical to pcf_shadow_proj's XLA tap loop — op order,
-    select semantics, and f32 rounding all match (pinned by
-    test_pcf_quant_paths_bit_identical via the shared outer code)."""
-    x = rows_ref[...]  # (bpx, 128) i32
-    xt = jnp.swapaxes(x, 0, 1)  # (128, bpx): lanes -> sublanes
-    k2 = k2_ref[...]  # (1, bpx)
-    yoff = yoff_ref[...]
-    xo = xoff_ref[...]
-    xh = jnp.where(k2 == 1, xt[64:128, :], xt[0:64, :])  # (64, bpx)
-    a = yoff >> 2
-    b = yoff & 3
-    za = jnp.where(
-        a == 0, xh[0:28, :], jnp.where(a == 1, xh[16:44, :], xh[32:60, :])
-    )  # (28, bpx)
-    r16 = jnp.where(
-        b == 0,
-        za[0:16, :],
-        jnp.where(b == 1, za[4:20, :], jnp.where(b == 2, za[8:24, :], za[12:28, :])),
-    )  # (16, bpx): window row r texel pair c at sublane 4r + c
-    dq = jnp.float32(1.0 / 65535.0)
-    lo = (r16 & 0xFFFF).astype(jnp.float32) * dq
-    hi = jax.lax.shift_right_logical(r16, 16).astype(jnp.float32) * dq
-    podd = (xo & 1) == 1
-    q1 = (xo >> 1) == 1
-    rows = []  # 4 rows x 4 cols of (1, bpx) f32 texel planes
-    for r in range(4):
-        cols = []
-        for j in range(4):
-            a_pl, b_pl = ((lo, hi), (hi, lo))[j % 2]
-            ja, jb = j // 2, (j + 1) // 2
-            av = jnp.where(
-                q1, a_pl[4 * r + ja + 1 : 4 * r + ja + 2, :],
-                a_pl[4 * r + ja : 4 * r + ja + 1, :],
-            )
-            bv = jnp.where(
-                q1, b_pl[4 * r + jb + 1 : 4 * r + jb + 2, :],
-                b_pl[4 * r + jb : 4 * r + jb + 1, :],
-            )
-            cols.append(jnp.where(podd, bv, av))
-        rows.append(tuple(cols))
-
-    z = z_ref[...]
-    lx = lx_ref[...]
-    ly = ly_ref[...]
-
-    def sel3(i, aa, bb, cc):
-        return tuple(
-            jnp.where(i == 0, pa, jnp.where(i == 1, pb, pc))
-            for pa, pb, pc in zip(aa, bb, cc)
-        )
-
-    def col(row4, i, off):
-        return jnp.where(
-            i == 0, row4[0 + off], jnp.where(i == 1, row4[1 + off], row4[2 + off])
-        )
-
-    shadow = jnp.zeros_like(lx)
-    for j in range(-2, 3):
-        sy = ly + j * step
-        iy = jnp.floor(sy).astype(jnp.int32)
-        fy = sy - iy
-        row0 = sel3(iy, rows[0], rows[1], rows[2])
-        row1 = sel3(iy, rows[1], rows[2], rows[3])
-        for i in range(-2, 3):
-            sx = lx + i * step
-            ix = jnp.floor(sx).astype(jnp.int32)
-            fx = sx - ix
-            c00 = col(row0, ix, 0)
-            c10 = col(row0, ix, 1)
-            c01 = col(row1, ix, 0)
-            c11 = col(row1, ix, 1)
-            top = c00 + (c10 - c00) * fx
-            bot = c01 + (c11 - c01) * fx
-            closest = top + (bot - top) * fy
-            shadow = shadow + jnp.where(z > closest, 1.0, 0.0)
-    # Emit the RAW tap count: the /25 happens in XLA outside the kernel so
-    # both PCF paths get the identical division lowering (a jit-compiled
-    # divide-by-constant becomes reciprocal-multiply, the eager reference
-    # path's does not — dividing in-kernel broke bit-identity by 1 ulp).
-    out_ref[...] = shadow
-
-
-def _pcf_eval(rowfull, k2, yoff, xoff, z, lx, ly, step: float, vma=()):
-    """(P, 128) i32 rows + per-pixel window/tap scalars -> (1, P) f32 PCF."""
-    p = rowfull.shape[0]
-    bpx = min(4096, p)
-    assert p % bpx == 0
-    args = [a.reshape(1, p) for a in (k2, yoff, xoff, z, lx, ly)]
-    return pl.pallas_call(
-        functools.partial(_pcf_eval_kernel, step=step),
-        grid=(p // bpx,),
-        in_specs=[pl.BlockSpec((bpx, 128), lambda i: (i, 0))]
-        + [pl.BlockSpec((1, bpx), lambda i: (0, i))] * 6,
-        out_specs=pl.BlockSpec((1, bpx), lambda i: (0, i)),
-        out_shape=jax.ShapeDtypeStruct((1, p), jnp.float32, vma=frozenset(vma)),
-        interpret=jax.default_backend() != "tpu",
-    )(rowfull, *args)
-
-
-def _pcf_resolve(rowfull, cand, xoff, vma=()):
-    """(P, 128) i32 rows + (P,) i32 cand/xoff -> (16, P) f32 texel planes."""
-    p = rowfull.shape[0]
-    bpx = min(4096, p)
-    assert p % bpx == 0
-    return pl.pallas_call(
-        _pcf_resolve_kernel,
-        grid=(p // bpx,),
-        in_specs=[
-            pl.BlockSpec((bpx, 128), lambda i: (i, 0)),
-            pl.BlockSpec((1, bpx), lambda i: (0, i)),
-            pl.BlockSpec((1, bpx), lambda i: (0, i)),
-        ],
-        out_specs=pl.BlockSpec((16, bpx), lambda i: (0, i)),
-        out_shape=jax.ShapeDtypeStruct((16, p), jnp.float32, vma=frozenset(vma)),
-        interpret=jax.default_backend() != "tpu",
-    )(rowfull, cand.reshape(1, p), xoff.reshape(1, p))
-
-
-def pcf_shadow(
-    shadow_map: Array,
-    light_space_pos: Array,
-    use_lut: bool | None = None,
-    quant: bool | None = None,
-) -> Array:
+def pcf_shadow(shadow_map: Array, light_space_pos: Array) -> Array:
     """Fraction of occluded PCF taps in [0, 1] per pixel.
 
     shadow_map: (S, S) f32 depth from the sun pass (cleared to 1.0).
@@ -799,67 +33,15 @@ def pcf_shadow(
     """
     w = light_space_pos[..., 3]
     proj = light_space_pos[..., :3] / w[..., None]
-    return pcf_shadow_proj(
-        shadow_map, proj[..., 0], proj[..., 1], proj[..., 2], use_lut=use_lut,
-        quant=quant,
-    )
+    return pcf_shadow_proj(shadow_map, proj[..., 0], proj[..., 1], proj[..., 2])
 
 
-def pcf_shadow_proj(
-    shadow_map: Array | None,
-    x: Array,
-    y: Array,
-    z: Array,
-    use_lut: bool | None = None,
-    quant: bool | None = None,
-    vma: tuple = (),
-    care: Array | None = None,
-    row_cap: int | None = None,
-    with_rows: bool = False,
-    lut: Array | None = None,
-    pyramid: Array | None = None,
-    lut_y_range: Array | None = None,
-    raw_flat: Array | None = None,
-    map_size: int | None = None,
-):
+def pcf_shadow_proj(shadow_map: Array, x: Array, y: Array, z: Array) -> Array:
     """pcf_shadow on already-divided NDC components (channel-first callers
-    pass the three (..., S) planes directly; the sun is orthographic so the
-    fused path's interpolated xyz needs no divide).
-
-    ``row_cap`` (quant-LUT path only) turns on min/max-pyramid penumbra
-    classification: pixels are viewed as 128-wide rows, rows provably
-    fully-lit / fully-shadowed emit exact 0/1 without touching the window
-    LUT, and only penumbra rows (compacted to ``row_cap`` rows — overflow
-    is loud via the returned count) pay the per-pixel window gather + tap
-    kernel. Bit-identical to the uncompacted path for every pixel whose
-    value is consumed. ``care`` marks consumed pixels (None = all);
-    don't-care pixels get unspecified finite values. ``with_rows`` also
-    returns the penumbra row count (check it against row_cap: more means
-    some penumbra rows got another row's values — raise, like pair
-    overflow).
-
-    ``lut``/``pyramid`` (quant-LUT path) inject cached build products (see
-    core.scene.SunCache): they MUST be build_window_lut_q /
-    build_shadow_pyramid outputs for this exact map — identical values by
-    construction, just not rebuilt per frame.
-
-    ``lut_y_range`` (in-frame quant-LUT build only): (2,) i32 [min, max]
-    inclusive bound on every CONSUMED pixel's window start_y — LUT grid
-    steps outside it are skipped (build_window_lut_q). The pipeline passes
-    the sun-frustum cull rect's y band; pixels whose start_y falls outside
-    it must be ~care / outside (their values are never consumed).
-
-    ``raw_flat``/``map_size``: quant-LUT path only — the lut_rows shadow
-    raster's row-major depth buffer in place of an (S, S) map (identical
-    values; skips the untile copies — see pipeline.shadow_pass)."""
-    if shadow_map is None:
-        assert raw_flat is not None and map_size is not None
-        s = map_size
-        # raw_flat implies the quant-LUT path (the layouts only exist there).
-        use_lut, quant = True, True
-    else:
-        s = shadow_map.shape[0]
-        assert shadow_map.shape == (s, s)
+    pass the three planes directly; the sun is orthographic so the fused
+    path's interpolated xyz needs no divide)."""
+    s = shadow_map.shape[0]
+    assert shadow_map.shape == (s, s)
     u = x * 0.5 + 0.5
     v = 1.0 - (y * 0.5 + 0.5)
     outside = (z > 1.0) | (u < 0.0) | (v < 0.0) | (u > 1.0) | (v > 1.0)
@@ -870,164 +52,33 @@ def pcf_shadow_proj(
     step = PCF_UV_STEP * s  # texels between adjacent taps
 
     # 4x4 window that contains all 25 bilinear taps (valid while step <= 0.5).
-    # The map is padded by 2 wrapped texels per side so the window is one
-    # contiguous (4, 4) sliced gather (fast path) with exact WRAP semantics.
+    # The map is padded by 2 wrapped texels per side so the window is
+    # contiguous with exact WRAP semantics.
     wx = jnp.floor(tx).astype(jnp.int32) - 1
     wy = jnp.floor(ty).astype(jnp.int32) - 1
     start_y = jnp.clip(wy + 2, 0, s)  # padded-coords window origin
     start_x = jnp.clip(wx + 2, 0, s)
 
-    # Gathers cost ~14 ns/row flat on TPU, so the one-row-per-window Pallas
-    # LUT (2M rows/frame) beats the strided-runs path (4 rows per window,
-    # 8M rows) once the LUT build is batched. The runs path remains for CPU
-    # (pallas interpret mode is slow) — both are bit-identical (tested).
-    if use_lut is None:
-        # row_cap implies the quant-LUT path (classification lives there);
-        # otherwise the runs path stays the CPU default (interpret-mode
-        # Pallas is slow).
-        use_lut = jax.default_backend() == "tpu" or row_cap is not None
-    if quant is None:
-        quant = PCF_QUANT
-    if use_lut and quant:
-        if lut is None:
-            lutq, xb = build_window_lut_q(
-                shadow_map, y_range=lut_y_range, raw_flat=raw_flat,
-                map_size=map_size,
-            )
-        else:
-            lutq, xb = lut, lut_q_xb(s)
-        jrow, k2, yoff, xoff = window_row_index_q(start_y, start_x, xb)
-        jrow = jnp.where(outside, 0, jrow)
-        # Flatten + pad to the kernel block, gather, then resolve the window
-        # AND run the whole 25-tap loop in one Pallas kernel: only the
-        # 4 B/px shadow fraction leaves VMEM (the earlier resolve-only
-        # kernel wrote 64 B/px of texel planes that the XLA tap loop
-        # immediately re-read — a 2x134 MB round-trip at 1080p).
-        shape = jrow.shape
-        pn = 1
-        for d in shape:
-            pn *= d
-        pad = -pn % 4096
-        lx = tx - wx.astype(jnp.float32)  # local coords in the window, [1, 2)
-        ly = ty - wy.astype(jnp.float32)
-
-        def fl(a):
-            return jnp.pad(a.reshape(-1), (0, pad))
-
-        if row_cap is not None:
-            # Penumbra classification + 128-px-row compaction: the window
-            # gather is issue-count bound (~2 ns/row at any table size,
-            # probe_gather2/3), so the win comes from issuing FEWER rows —
-            # and compaction at 128-lane-row granularity costs only
-            # rows/128 cheap row gathers, not 2M per-pixel ones.
-            rows = (pn + pad) // 128
-            rowcap = effective_row_cap(pn, row_cap)
-            if pyramid is None:
-                pyr, meta = build_shadow_pyramid(
-                    shadow_map if shadow_map is not None else raw_flat[:s, :s]
-                )
-            else:
-                pyr, meta = pyramid, pyramid_meta(s)
-
-            def f2(a, fill=0):
-                flat = a.reshape(-1)
-                return jnp.pad(flat, (0, pad), constant_values=fill).reshape(
-                    rows, 128
-                )
-
-            care2 = ~outside if care is None else (care & ~outside)
-            care2 = f2(care2, False)  # padding pixels are never consumed
-            lit, shd = classify_pcf_rows(
-                pyr, meta, f2(start_y), f2(start_x), f2(z), care2
-            )  # (rows, sub): per-lane-group verdicts
-            pen = ~jnp.all(lit | shd, axis=1)  # a row compacts whole
-            rows_used = jnp.sum(pen.astype(jnp.int32))
-            # Penumbra rows first, in original order (stable ascending).
-            order = jnp.argsort(jnp.where(pen, 0, 1), stable=True)[:rowcap]
-            args = [f2(a) for a in (k2, yoff, xoff, z, lx, ly)]
-            rowfull = lutq[f2(jrow)[order].reshape(-1)]
-            out = _pcf_eval(
-                rowfull, *(a[order].reshape(-1) for a in args),
-                step=step, vma=vma,
-            )
-            raw_c = out.reshape(rowcap, 128)
-            # Each penumbra row's rank in the compacted stream; classified
-            # rows read a clipped dummy (masked below). Ranks past rowcap
-            # mean overflow: those rows get WRONG values — the caller must
-            # treat rows_used > row_cap like pair-buffer overflow.
-            rank = jnp.clip(jnp.cumsum(pen.astype(jnp.int32)) - 1, 0, rowcap - 1)
-            sub = lit.shape[1]
-            class_lanes = jnp.repeat(
-                jnp.where(lit, 0.0, 25.0), 128 // sub, axis=1
-            )  # (rows, 128)
-            raw = jnp.where(pen[:, None], raw_c[rank], class_lanes)
-            shadow = raw.reshape(-1)[:pn].reshape(shape) / 25.0
-            shadow = jnp.where(outside, 0.0, shadow)
-            return (shadow, rows_used) if with_rows else shadow
-
-        rowfull = lutq[fl(jrow)]  # (P + pad, 128) i32, one row per window
-        out = _pcf_eval(
-            rowfull, fl(k2), fl(yoff), fl(xoff), fl(z), fl(lx), fl(ly),
-            step=step, vma=vma,
-        )
-        shadow = out[0, :pn].reshape(shape) / 25.0
-        shadow = jnp.where(outside, 0.0, shadow)
-        return (shadow, jnp.int32(0)) if with_rows else shadow
-    elif use_lut:
-        lutp, xb = build_window_lut(shadow_map)
-        jrow, k2, yoff, xoff = window_row_index(start_y, start_x, xb)
-        # Out-of-frustum pixels return 0 without reading the map — point
-        # their (discarded) window gathers at one cached row.
-        jrow = jnp.where(outside, 0, jrow)
-        rowfull = lutp[jrow]  # (..., 128): two 8x8 blocks, one row gather
-        if PCF_FENCE == "rowfull":
-            rowfull = jax.lax.optimization_barrier(rowfull)
-        block = jnp.where(
-            (k2 == 1)[..., None], rowfull[..., 64:128], rowfull[..., 0:64]
-        )  # (..., 64), lanes wr * 8 + wc
-        if PCF_FENCE == "block":
-            block = jax.lax.optimization_barrier(block)
-        # Window rows [yoff, yoff + 4): one 4-way select of 32-lane slices.
-        r32 = block[..., 0:32]
-        for yy in range(1, 4):
-            r32 = jnp.where(
-                (yoff == yy)[..., None], block[..., 8 * yy : 8 * yy + 32], r32
-            )
-        # Fence: without it XLA relayouts the gathered 128-lane rows (a
-        # 3.2 ms channel-first copy at 1080p) before extracting; fencing
-        # here makes the 4x smaller (..., 32) slice the layout boundary.
-        if PCF_FENCE == "r32":
-            r32 = jax.lax.optimization_barrier(r32)
-        # Window cols [xoff, xoff + 4) per row: 4-way selects per texel
-        # plane (identical arithmetic to the old (..., 4) lane-slice form).
-        rows = []
-        for r in range(4):
-            cols = []
-            for c in range(4):
-                wc = r32[..., 8 * r + c]
-                for xx in range(1, 4):
-                    wc = jnp.where(xoff == xx, r32[..., 8 * r + xx + c], wc)
-                cols.append(wc)
-            rows.append(tuple(cols))
-    else:
-        padded = jnp.pad(shadow_map, 2, mode="wrap")
-        sp = s + 4
-        yq = (sp + 3 + 3) // 4
-        xq = (sp + 3 + 3) // 4
-        padded2 = jnp.pad(padded, ((0, yq * 4 - sp), (0, xq * 4 + 3 - sp)))
-        classes = []
-        for kcl in range(4):
-            for sx in range(4):
-                classes.append(padded2[kcl::4, sx : sx + 4 * xq].reshape(yq, xq, 4))
-        runs = jnp.stack(classes).reshape(16 * yq * xq, 4)
-        sx_c = start_x % 4
-        qx = start_x // 4
-        yrow = start_y[..., None] + jnp.arange(4)  # (..., 4) window rows
-        idx = (((yrow % 4) * 4 + sx_c[..., None]) * yq + yrow // 4) * xq + qx[..., None]
-        window = runs[idx].reshape(start_y.shape + (16,))  # (..., 16) flat
-        rows = [
-            tuple(window[..., 4 * r + c] for c in range(4)) for r in range(4)
-        ]
+    # Runs table: for each (row class, x phase) a dense (yq, xq, 4) array of
+    # 4-texel runs, so each window row is ONE 16-byte row gather.
+    padded = jnp.pad(shadow_map, 2, mode="wrap")
+    sp = s + 4
+    yq = (sp + 3 + 3) // 4
+    xq = (sp + 3 + 3) // 4
+    padded2 = jnp.pad(padded, ((0, yq * 4 - sp), (0, xq * 4 + 3 - sp)))
+    classes = []
+    for kcl in range(4):
+        for sx in range(4):
+            classes.append(padded2[kcl::4, sx : sx + 4 * xq].reshape(yq, xq, 4))
+    runs = jnp.stack(classes).reshape(16 * yq * xq, 4)
+    sx_c = start_x % 4
+    qx = start_x // 4
+    yrow = start_y[..., None] + jnp.arange(4)  # (..., 4) window rows
+    idx = (((yrow % 4) * 4 + sx_c[..., None]) * yq + yrow // 4) * xq + qx[..., None]
+    window = runs[idx].reshape(start_y.shape + (16,))  # (..., 16) flat
+    rows = [
+        tuple(window[..., 4 * r + c] for c in range(4)) for r in range(4)
+    ]
 
     lx = tx - wx.astype(jnp.float32)  # local coords in the window, in [1, 2)
     ly = ty - wy.astype(jnp.float32)
@@ -1035,10 +86,7 @@ def pcf_shadow_proj(
     # Window rows/cols are selected with exact 3-way selects (tap texel
     # indices can only be 0..2 while |offset| <= 0.8 texels + bilinear),
     # keeping the lerp arithmetic bit-identical to SampleLevel and avoiding
-    # data-dependent gathers entirely.
-
-    # Rows are tuples of 4 pixel-minor texel planes (no small-minor arrays
-    # anywhere in the tap loop: a (..., 4) lane-slice form tile-pads 32x).
+    # data-dependent gathers entirely. Rows are tuples of 4 texel planes.
     def sel3(i, a, b, c):
         return tuple(
             jnp.where(i == 0, pa, jnp.where(i == 1, pb, pc))
@@ -1071,4 +119,4 @@ def pcf_shadow_proj(
             shadow = shadow + jnp.where(z > closest, 1.0, 0.0)
     shadow = shadow / 25.0
     shadow = jnp.where(outside, 0.0, shadow)
-    return (shadow, jnp.int32(0)) if with_rows else shadow
+    return shadow

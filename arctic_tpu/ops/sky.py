@@ -3,7 +3,7 @@
 The reference draws a 36-vertex cube with depth pinned to the far plane
 (pos.xyww, skybox.hlsl:68) after the forward pass with LESS_EQUAL so only
 background pixels survive (skybox_pass.cpp:87-89).  The cube's interpolated
-object-space position *is* the world-space view direction, so on TPU we skip
+object-space position *is* the world-space view direction, so we skip
 the cube entirely: compute each pixel's camera ray analytically and sample the
 environment where the visibility buffer is empty — pixel-exact equivalent.
 
@@ -14,6 +14,7 @@ which relies on WRAP addressing to land in range.
 
 from __future__ import annotations
 
+import jax
 import jax.numpy as jnp
 
 from arctic_tpu.core import maths
@@ -113,7 +114,7 @@ def camera_ray_directions_at(camera, px: Array, py: Array, width: int, height: i
     )
     view = maths.camera_view_matrix(camera.eye, camera.rotation)
     rot = view[:3, :3]  # rows: right, up, -forward
-    return jnp.einsum("ji,...j->...i", rot, dir_view)
+    return jnp.einsum("ji,...j->...i", rot, dir_view, precision=jax.lax.Precision.HIGHEST)
 
 
 def camera_ray_directions(camera, height: int, width: int, row0=0.0, rows=None) -> Array:
@@ -138,7 +139,7 @@ def camera_ray_directions(camera, height: int, width: int, row0=0.0, rows=None) 
     )
     view = maths.camera_view_matrix(camera.eye, camera.rotation)
     rot = view[:3, :3]  # rows: right, up, -forward
-    return jnp.einsum("ji,hwj->hwi", rot, dir_view)
+    return jnp.einsum("ji,hwj->hwi", rot, dir_view, precision=jax.lax.Precision.HIGHEST)
 
 
 def env_uv_cf(dx: Array, dy: Array, dz: Array):

@@ -1,7 +1,7 @@
 """Tonemapping + gamma — exact jnp translation of shaders/post_process.hlsl.
 
 The reference runs this as a 16x16-thread compute pass over the HDR target
-(post_process_pass.cpp:76-95); on TPU it's plain elementwise jnp that XLA
+(post_process_pass.cpp:76-95); here it is plain elementwise jnp that XLA
 fuses into the end of the frame program — there is nothing to hand-schedule.
 
 - tm_reinhard      post_process.hlsl:39-42   c / (c + 1)
@@ -14,6 +14,7 @@ fuses into the end of the frame program — there is nothing to hand-schedule.
 
 from __future__ import annotations
 
+import jax
 import jax.numpy as jnp
 
 Array = jnp.ndarray
@@ -30,6 +31,9 @@ ACES_INPUT_MAT = jnp.array(
 )
 
 # post_process.hlsl:21-25
+# f32 contractions without a precision may run in TF32 on the GPU.
+_HI = jax.lax.Precision.HIGHEST
+
 ACES_OUTPUT_MAT = jnp.array(
     [
         [1.60475, -0.53108, -0.07367],
@@ -56,17 +60,17 @@ def _rrt_and_odt_fit(color: Array) -> Array:
 
 def tm_aces(color: Array, channel_axis: int = -1) -> Array:
     if channel_axis == -1:
-        c = jnp.einsum("ij,...j->...i", ACES_INPUT_MAT, color)
+        c = jnp.einsum("ij,...j->...i", ACES_INPUT_MAT, color, precision=_HI)
         c = _rrt_and_odt_fit(c)
-        c = jnp.einsum("ij,...j->...i", ACES_OUTPUT_MAT, c)
+        c = jnp.einsum("ij,...j->...i", ACES_OUTPUT_MAT, c, precision=_HI)
     elif channel_axis == 0:  # channel-leading (3, ...): pixel dims minor
-        c = jnp.einsum("ij,j...->i...", ACES_INPUT_MAT, color)
+        c = jnp.einsum("ij,j...->i...", ACES_INPUT_MAT, color, precision=_HI)
         c = _rrt_and_odt_fit(c)
-        c = jnp.einsum("ij,j...->i...", ACES_OUTPUT_MAT, c)
+        c = jnp.einsum("ij,j...->i...", ACES_OUTPUT_MAT, c, precision=_HI)
     else:  # channel-first (..., 3, S): pixel dim stays minor
-        c = jnp.einsum("ij,...js->...is", ACES_INPUT_MAT, color)
+        c = jnp.einsum("ij,...js->...is", ACES_INPUT_MAT, color, precision=_HI)
         c = _rrt_and_odt_fit(c)
-        c = jnp.einsum("ij,...js->...is", ACES_OUTPUT_MAT, c)
+        c = jnp.einsum("ij,...js->...is", ACES_OUTPUT_MAT, c, precision=_HI)
     return jnp.clip(c, 0.0, 1.0)  # saturate
 
 
@@ -83,10 +87,10 @@ def tonemap(
     tm_method is a traced int32 so one compiled frame program serves all
     three operators (the reference keeps one PSO with a CB switch). All
     three maps are computed and selected per pixel instead of lax.switch:
-    a conditional is a fusion BARRIER (the chosen branch round-tripped the
-    25 MB HDR buffer through HBM — hlo_r5c cond.3.clone, 0.20 ms/frame),
-    while the select fuses into the shade/post tail; the extra operators
-    are a handful of VPU ops on data already in registers. The selected
+    a conditional is a fusion barrier (the chosen branch round-trips the
+    HDR buffer through device memory), while the select fuses into the
+    shade/post tail; the extra operators are a handful of elementwise ops
+    on data already in registers. The selected
     values are the branches' exact outputs — bit-identical per method.
     """
     m = jnp.clip(tm_method, 0, 2)

@@ -1,30 +1,29 @@
-"""Multi-chip rendering: screen-tile-row sharding over a jax.sharding.Mesh.
+"""Multi-device rendering: screen-tile-row sharding over a jax.sharding.Mesh.
 
-The reference is strictly single-GPU (SURVEY.md §2 end, §5.8) — this module
-is the TPU-native scaling story that replaces nothing-in-the-reference:
+The reference is strictly single-GPU (SURVEY.md §2 end, §5.8); this module
+spreads one frame over the GPUs of a host:
 
 - geometry/scene params are replicated (small); triangle setup and the
-  shade-row table are recomputed per device (per-triangle work is ~5% of
-  the frame and replicating it avoids sharding the pair sort);
+  shade-row table are recomputed per device (per-triangle work is a small
+  share of the frame and replicating it avoids sharding the pair sort);
 - each device bins and rasterizes only its horizontal slab of screen tiles
-  through the SAME fused path as single-chip (raster_gbuffer: Mosaic
-  raster + select+interp kernels, then channel-first shade_gbuffer) —
-  the binning sort shrinks per device because row-window rejection happens
+  through the SAME path as single-device (raster_gbuffer: tiled raster
+  kernel + G-buffer resolve, then channel-first shade_gbuffer) — the
+  binning sort shrinks per device because row-window rejection happens
   before pair expansion;
-- the shadow map is rendered slab-parallel too (depth-only kind='shadow'
-  kernel), then ``all_gather``-ed over ICI because PCF sampling needs the
-  whole map on every device. Each device builds its own PCF window LUT
-  from the gathered map: redundant energy, but the build is ~2 ms of
-  fully-parallel MXU work, while all-gathering the 4x-larger LUT would
-  put ~4x the map's bytes on ICI — measured choice, revisit on real
-  multi-chip hardware;
+- the shadow map is rendered slab-parallel too (depth-only raster), then
+  ``all_gather``-ed over the mesh because PCF sampling needs the whole map
+  on every device;
 - shading/tonemap stay slab-local and channel-first; each device untiles
   only its final u8 slab, and the frame comes out row-sharded.
 
-SPMD via shard_map: XLA inserts exactly one collective (the shadow-map
-all-gather); everything else is embarrassingly parallel. Raster health
-stats come out replicated (max over devices) so pipeline.check_stats
-keeps overflow loud in the ``--devices`` CLI path.
+SPMD via shard_map: XLA inserts one collective for the shadow map and the
+scalar max-reductions of the raster health stats; everything else is
+embarrassingly parallel. The stats come out replicated (max over devices)
+so pipeline.check_stats keeps overflow loud in the ``--devices`` CLI path.
+shard_map runs with check_vma=False: the Pallas kernels' outputs carry no
+varying-axis types, and the frame test against single-device rendering is
+the correctness check.
 """
 
 from __future__ import annotations
@@ -63,13 +62,11 @@ def render_frame_sharded_stats(
     settings: Settings,
     config: RenderConfig,
     mesh: Mesh,
-    check_vma: bool = True,
 ):
     """Full frame over every device in ``mesh``; returns ((H, W, 3) u8
     row-sharded across the mesh axis, stats dict of replicated scalars).
 
-    Runs the round-2 fused pipeline per slab (NOT the deferred path): the
-    same kernels, shade-row build, and channel-first shading as
+    Runs the same shade-row build, kernels and channel-first shading as
     pipeline.render_frame_stats, restricted to each device's tile rows.
     """
     ndev = mesh.shape[AXIS]
@@ -83,7 +80,6 @@ def render_frame_sharded_stats(
     sh_tile_rows = _round_up(-(-s // sth), ndev)
     sh_rows_dev = sh_tile_rows // ndev
     sh_tiles_x = -(-s // st)
-    vma = (AXIS,) if not config.force_bruteforce else ()
 
     def device_frame(buffers, params, settings):
         from arctic_tpu.ops import raster_tiles
@@ -95,14 +91,14 @@ def render_frame_sharded_stats(
         cam_pv = params.camera.proj_view()
 
         if config.force_bruteforce:
-            # CPU/debug path (the dryrun's Pallas-free route): deferred
-            # shade over a brute-force slab raster.
+            # Kernel-free debug path: deferred shade over a brute-force slab
+            # raster.
             world = pipeline.vertex_world_positions(geom)
             sh_clip = pipeline.to_clip(world, sun_pv)
             sh_clipped = raster.near_clip_triangles(sh_clip, geom.indices, tri_valid)
             sh_setup = raster.setup_screen_triangles(sh_clipped, s, s, cull="front")
             sh_z, _ = raster.rasterize_bruteforce(
-                sh_setup, sh_rows_dev * sth, s, config.raster_chunk,
+                sh_setup, sh_rows_dev * sth, s,
                 y_offset=(d * sh_rows_dev * sth).astype(jnp.float32),
             )
             shadow_map = jax.lax.all_gather(sh_z, AXIS, axis=0, tiled=True)[:s, :s]
@@ -112,7 +108,7 @@ def render_frame_sharded_stats(
             setup = raster.setup_screen_triangles(clipped, w, h, cull="back")
             y0 = (d * cam_rows_dev * th).astype(jnp.float32)
             _, ibuf = raster.rasterize_bruteforce(
-                setup, cam_rows_dev * th, w, config.raster_chunk, y_offset=y0
+                setup, cam_rows_dev * th, w, y_offset=y0
             )
             hdr = pipeline.shade(
                 buffers, params, setup, ibuf, world, shadow_map, sun_pv, config,
@@ -125,58 +121,46 @@ def render_frame_sharded_stats(
             )
             img = tonemap.to_unorm8(ldr)
             zero = jnp.int32(0)
-            return img, zero, zero, zero, zero
+            return img, zero, zero, zero
 
-        # --- fused path: the single-chip round-2 architecture per slab ---
         wc = pipeline.world_corners(geom)
         sun_clip = pipeline.corners_clip(wc, sun_pv)
 
         # Shadow slab (depth-only raster, front-face cull), then the one
-        # ICI collective.
+        # map-sized collective.
         sh_clipped = raster.near_clip_corners(sun_clip, tri_valid)
         sh_setup = raster.setup_screen_triangles(sh_clipped, s, s, cull="front")
         # Sun-frustum culling composes with slab sharding: the rect is
         # computed from replicated inputs (identical on every device) and
         # bin_triangles subtracts each device's tile_row0, so the gathered
-        # map matches the single-chip culled map texel-for-texel.
-        sh_rect = sh_y_band = None
+        # map matches the single-device culled map texel-for-texel.
+        sh_rect = None
         if config.sun_frustum_cull:
-            sh_rect, sh_y_band = pipeline.sun_cull_rect(
-                wc, tri_valid, cam_pv, sun_pv, config, with_y_band=True
-            )
-        sh_zt, _, _, sh_pairs, _ = raster_tiles.bin_and_rasterize(
-            sh_setup, s, config, sh_tiles_x, sh_rows_dev, sth, st,
-            tile_row0=d * sh_rows_dev, vma=vma, kind="shadow", depth_only=True,
+            sh_rect = pipeline.sun_cull_rect(wc, tri_valid, cam_pv, sun_pv, config)
+        sh_zt, _, sh_pairs = raster_tiles.bin_and_rasterize(
+            sh_setup, config, sh_tiles_x, sh_rows_dev, sth, st,
+            tile_row0=d * sh_rows_dev, kind="shadow", depth_only=True,
             rect=sh_rect,
         )
         sh_slab = raster_tiles._untile(sh_zt, sh_rows_dev, sh_tiles_x, sth, st)
         sh_slab = sh_slab[:, :s]
         shadow_map = jax.lax.all_gather(sh_slab, AXIS, axis=0, tiled=True)[:s, :s]
 
-        # Camera slab through the fused raster + select+interp kernels.
+        # Camera slab through the tiled raster + G-buffer resolve.
         clipped = raster.near_clip_corners(
             pipeline.corners_clip(wc, cam_pv), tri_valid
         )
         setup = raster.setup_screen_triangles(clipped, w, h, cull="back")
         shade_rows = pipeline.build_shade_rows(
-            setup, geom, sun_pv, wc=wc, lsp=tuple(c[:3] for c in sun_clip),
-            vma=vma,
+            setup, geom, sun_pv, wc=wc, lsp=tuple(c[:3] for c in sun_clip)
         )
-        shade_rows = jax.lax.optimization_barrier(shade_rows)
-        ibuf_tiles, gbuf, cam_pairs = raster_tiles.raster_gbuffer(
+        ibuf_rows, gbuf, cam_pairs = raster_tiles.raster_gbuffer(
             setup, shade_rows, h, w, config,
-            tile_row0=d * cam_rows_dev, tile_rows=cam_rows_dev, vma=vma,
+            tile_row0=d * cam_rows_dev, tile_rows=cam_rows_dev,
         )
-        ibuf_tiles, gbuf = jax.lax.optimization_barrier((ibuf_tiles, gbuf))
-        lut_y_range = None
-        if sh_y_band is not None and config.lut_y_skip:
-            # Same start_y band the single-chip path uses (replicated
-            # inputs, so the skipped LUT steps agree on every device).
-            lut_y_range = jnp.stack(sh_y_band).astype(jnp.int32)
-        hdr, pcf_rows, tex_fb_rows = pipeline.shade_gbuffer(
-            buffers, params, gbuf, ibuf_tiles >= 0, shadow_map, config,
-            tiles_x=config.tiles_x, tile_row0=d * cam_rows_dev, vma=vma,
-            with_pcf_rows=True, lut_y_range=lut_y_range,
+        hdr, tex_fb_rows = pipeline.shade_gbuffer(
+            buffers, params, gbuf, ibuf_rows >= 0, shadow_map, config,
+            tiles_x=config.tiles_x, tile_row0=d * cam_rows_dev,
         )
         if config.hdr_half_round:
             hdr = hdr.astype(jnp.float16).astype(jnp.float32)
@@ -191,35 +175,20 @@ def render_frame_sharded_stats(
         # semantics: ANY device overflowing is a dropped-fragment frame).
         cam_pairs = jax.lax.pmax(cam_pairs, AXIS)
         sh_pairs = jax.lax.pmax(sh_pairs.total_pairs, AXIS)
-        pcf_rows = jax.lax.pmax(pcf_rows, AXIS)
         tex_fb_rows = jax.lax.pmax(tex_fb_rows, AXIS)
-        return img, cam_pairs, sh_pairs, pcf_rows, tex_fb_rows
+        return img, cam_pairs, sh_pairs, tex_fb_rows
 
-    # check_vma=False is needed for the Pallas-tiled path in interpret mode
-    # (jax 0.9's pallas interpreter mixes varying/unvarying internally);
-    # correctness either way is covered by the sharded-vs-single tests.
     fn = jax.shard_map(
         device_frame,
         mesh=mesh,
         in_specs=(P(), P(), P()),
-        out_specs=(P(AXIS), P(), P(), P(), P()),
-        check_vma=check_vma,
+        out_specs=(P(AXIS), P(), P(), P()),
+        check_vma=False,
     )
-    img, cam_pairs, sh_pairs, pcf_rows, tex_fb_rows = fn(
-        buffers, params, settings
-    )
+    img, cam_pairs, sh_pairs, tex_fb_rows = fn(buffers, params, settings)
     geom_cap = buffers.geometry.capacity
     # Brute-force capacity path reports 0/1 (can't overflow), like _rasterize.
     bf = config.force_bruteforce
-    if bf or config.pcf_row_cap is None:
-        pcf_cap = 1
-    else:
-        # Per-device slab pixel count sets the compiled compaction capacity.
-        from arctic_tpu.ops import shadow as shadow_ops
-
-        pcf_cap = shadow_ops.effective_row_cap(
-            cam_rows_dev * config.tiles_x * th * tw, config.pcf_row_cap
-        )
     stats = {
         "cam_pairs": cam_pairs,
         "cam_pair_cap": jnp.int32(1 if bf else config.pair_capacity(2 * geom_cap)),
@@ -227,8 +196,6 @@ def render_frame_sharded_stats(
         "shadow_pair_cap": jnp.int32(
             1 if bf else config.pair_capacity(2 * geom_cap, "shadow")
         ),
-        "pcf_rows": pcf_rows,
-        "pcf_row_cap": jnp.int32(pcf_cap),
         "tex_fb_rows": tex_fb_rows,
         "tex_fb_cap": jnp.int32(
             config.tex_group_caps[-1]
@@ -245,30 +212,20 @@ def render_frame_sharded(
     settings: Settings,
     config: RenderConfig,
     mesh: Mesh,
-    check_vma: bool = True,
 ) -> Array:
     """Full frame over every device in ``mesh``; returns (H, W, 3) u8,
     row-sharded across the mesh axis."""
-    img, _ = render_frame_sharded_stats(
-        buffers, params, settings, config, mesh, check_vma
-    )
+    img, _ = render_frame_sharded_stats(buffers, params, settings, config, mesh)
     return img
 
 
-def make_sharded_renderer(config: RenderConfig, mesh: Mesh, check_vma: bool = True):
+def make_sharded_renderer(config: RenderConfig, mesh: Mesh):
     return jax.jit(
-        functools.partial(
-            render_frame_sharded, config=config, mesh=mesh, check_vma=check_vma
-        )
+        functools.partial(render_frame_sharded, config=config, mesh=mesh)
     )
 
 
-def make_sharded_renderer_stats(
-    config: RenderConfig, mesh: Mesh, check_vma: bool = True
-):
+def make_sharded_renderer_stats(config: RenderConfig, mesh: Mesh):
     return jax.jit(
-        functools.partial(
-            render_frame_sharded_stats, config=config, mesh=mesh,
-            check_vma=check_vma,
-        )
+        functools.partial(render_frame_sharded_stats, config=config, mesh=mesh)
     )

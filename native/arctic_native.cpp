@@ -1,7 +1,7 @@
 // arctic_native — C++ host-path library for arctic_tpu.
 //
 // The reference engine's host side is C++ throughout (Assimp import,
-// stb_image decode, scene flattening — src/app.cpp:173-385). The TPU build
+// stb_image decode, scene flattening — src/app.cpp:173-385). This build
 // keeps its device path in XLA/Pallas but implements the CPU-heavy load-time
 // work natively too: Radiance HDR decode (stbi_loadf equivalent for the
 // HDRI, renderer.cpp:111-126) and tangent-space generation

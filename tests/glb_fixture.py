@@ -1,5 +1,5 @@
 """Builds a GLB fixture in memory exercising what real Khronos assets use
-(VERDICT round 1: the loader was only ever tested on a 2-triangle synthetic
+(the loader is otherwise only tested on a 2-triangle synthetic
 file): multi-primitive meshes, nested node TRS (matrix AND T/R/S nodes),
 shared meshes across nodes, interleaved vertex buffers, normalized u16
 texcoords, u16 + u32 indices, an embedded (bufferView) PNG texture and a

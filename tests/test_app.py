@@ -44,7 +44,7 @@ def test_cli_renders_procedural_scene(tmp_path):
 
 def test_cli_load_state_restores_settings(tmp_path):
     """--save-state then --load-state must round-trip the SETTINGS half too
-    (VERDICT r3 weak #3: loaded tm/gamma/exposure were silently discarded),
+    (loaded tm/gamma/exposure must not be silently discarded),
     while explicitly-passed flags still override the loaded values."""
     import json
 
@@ -136,7 +136,7 @@ def test_frame_stats():
 
 def test_cli_stats_excludes_png_encode(tmp_path, monkeypatch, capsys):
     """--stats must time render + device sync only, not the per-frame PNG
-    encode (VERDICT r4 weak #4). A slow save_png must not move the measured
+    encode. A slow save_png must not move the measured
     minimum frame time (the first frame legitimately includes jit compile,
     so assert on min, which comes from a post-compile frame)."""
     import time

@@ -1,8 +1,8 @@
-"""The fused select+interp shading path must match the brute-force pipeline.
+"""The fused (G-buffer) shading path must match the brute-force pipeline.
 
 The fused path (ops/raster_tiles.raster_gbuffer + pipeline.shade_gbuffer)
-resolves all shading inputs inside a Pallas kernel via exact one-hot MXU
-selection; the only differences vs the deferred path are f32 reassociation
+resolves all shading inputs per pixel from the tiled rasterizer's slot ids;
+the only differences vs the deferred path are f32 reassociation
 (light-space positions interpolated per-corner instead of a per-pixel
 matmul, tri-major attribute combination). Allowed: <=1 u8 LSB.
 """
@@ -66,52 +66,6 @@ def test_fused_matches_bruteforce(scene_fn, eye, rot, lights):
     assert (diff > 0).mean() < 0.01
 
 
-def test_pcf_classify_pipeline_cap_invariant():
-    """The compiled penumbra-row capacity must not change a single pixel
-    (only padding rows of the compacted stream differ): full capacity vs a
-    tight-but-sufficient cap render bit-identically. Classification
-    correctness itself (classified == unclassified bits) is pinned at the
-    op level in test_window_lut."""
-    meshes, objects, materials, env = cornell_like_scene()
-    bufs = build_buffers(meshes, objects, materials, env, tri_bucket=256)
-    p = _params(W / H, [0.0, 4.0, 3.0], [-25.0, -90.0],
-                [((0.0, 1.0, 0.0), (10.0, 0.0, 0.0))])
-    s = default_settings()
-
-    base = dict(width=W, height=H, shadow_size=SHADOW, fused_shade=True)
-    img_full, stats = pipeline.render_frame_stats(
-        bufs, p, s, RenderConfig(**base, pcf_row_cap=1 << 20)  # = every row
-    )
-    pipeline.check_stats(stats)
-    used = int(stats["pcf_rows"])
-    assert 0 < used < int(stats["pcf_row_cap"])  # classification fired
-    tight = -(-used // 32) * 32  # round to the compiled block multiple
-    img_tight, stats2 = pipeline.render_frame_stats(
-        bufs, p, s, RenderConfig(**base, pcf_row_cap=tight)
-    )
-    pipeline.check_stats(stats2)
-    np.testing.assert_array_equal(np.asarray(img_tight), np.asarray(img_full))
-
-
-def test_pcf_classify_overflow_raises():
-    """An undersized pcf_row_cap must fail loudly via check_stats."""
-    from arctic_tpu.utils.errors import RenderError
-
-    meshes, objects, materials, env = cornell_like_scene()
-    bufs = build_buffers(meshes, objects, materials, env, tri_bucket=256)
-    p = _params(W / H, [0.0, 4.0, 3.0], [-25.0, -90.0])
-    s = default_settings()
-    _, stats = pipeline.render_frame_stats(
-        bufs, p, s,
-        RenderConfig(width=W, height=H, shadow_size=SHADOW, pcf_row_cap=32),
-    )
-    if int(stats["pcf_rows"]) > int(stats["pcf_row_cap"]):
-        with pytest.raises(RenderError, match="penumbra rows overflowed"):
-            pipeline.check_stats(stats)
-    else:
-        pytest.skip("scene fit in 32 rows — overflow not reachable here")
-
-
 def test_sun_cache_matches_uncached():
     """render_frame_stats(sun_cache=...) must reproduce the uncached frame
     (the cache holds exactly what the in-frame build computes), and a moved
@@ -121,13 +75,10 @@ def test_sun_cache_matches_uncached():
     p = _params(W / H, [0.0, 4.0, 3.0], [-25.0, -90.0],
                 [((0.0, 1.0, 0.0), (10.0, 0.0, 0.0))])
     s = default_settings()
-    config = RenderConfig(
-        width=W, height=H, shadow_size=SHADOW, fused_shade=True, pcf_row_cap=4096
-    )
+    config = RenderConfig(width=W, height=H, shadow_size=SHADOW, fused_shade=True)
 
     img_u, _ = pipeline.render_frame_stats(bufs, p, s, config)
     cache, cstats = pipeline.build_sun_cache(bufs, p, config)
-    assert cache.pyramid is not None  # pcf_row_cap set: classification needs it
     assert int(cstats["shadow_pairs"]) <= int(cstats["shadow_pair_cap"])
     img_c, stats = pipeline.render_frame_stats(bufs, p, s, config, cache)
     pipeline.check_stats(stats)
@@ -145,18 +96,22 @@ def test_sun_cache_matches_uncached():
 
 
 def test_sun_cache_default_config_skips_pyramid():
-    """With pcf_row_cap unset (the default) the min/max pyramid is never
-    consumed, so build_sun_cache must not build/carry it (VERDICT r4 weak
-    #5) — and the cached render must still match the uncached frame."""
+    """The sun cache holds the shadow map and nothing else: its one field is
+    the (S, S) map the uncached frame renders (uncull'd), and rendering from
+    it matches the uncached frame."""
+    from arctic_tpu.core.scene import SunCache
+
     meshes, objects, materials, env = cornell_like_scene()
     bufs = build_buffers(meshes, objects, materials, env, tri_bucket=256)
     p = _params(W / H, [0.0, 4.0, 3.0], [-25.0, -90.0])
     s = default_settings()
     config = RenderConfig(width=W, height=H, shadow_size=SHADOW)
-    assert config.pcf_row_cap is None
 
     cache, _ = pipeline.build_sun_cache(bufs, p, config)
-    assert cache.pyramid is None, "default config must not build the pyramid"
+    assert [f.name for f in dataclasses.fields(SunCache)] == ["shadow_map"]
+    assert cache.shadow_map.shape == (SHADOW, SHADOW)
+    smap, _, _ = pipeline.shadow_pass(bufs.geometry, p.sun.proj_view(), config)
+    np.testing.assert_array_equal(np.asarray(cache.shadow_map), np.asarray(smap))
     img_u, _ = pipeline.render_frame_stats(bufs, p, s, config)
     img_c, stats = pipeline.render_frame_stats(bufs, p, s, config, cache)
     pipeline.check_stats(stats)

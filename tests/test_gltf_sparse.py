@@ -1,7 +1,7 @@
 """Sparse accessor decoding (glTF 2.0 §3.6.2.3).
 
 The reference's Assimp import path handles sparse accessors transparently;
-round-2 VERDICT flagged the loader's NotImplementedError as a gap on
+the loader's former NotImplementedError was a gap on
 arbitrary real assets."""
 
 import numpy as np

@@ -87,7 +87,7 @@ def test_random_scene_matches_golden(seed):
         point_lights=PointLights.from_list(lights),
     )
     s = dataclasses.replace(default_settings(), tm_method=jnp.int32(tm))
-    img_tpu = np.asarray(pipeline.render_frame(bufs, p, s, config))
+    img_jax = np.asarray(pipeline.render_frame(bufs, p, s, config))
 
     tris, mats = golden.golden_scene(meshes, objects, materials)
     img_gold = golden.render(
@@ -95,5 +95,5 @@ def test_random_scene_matches_golden(seed):
         ambient=0.1, settings=dict(tm_method=tm, gamma=2.2, exposure=1.0),
         width=W, height=H, shadow_size=SHADOW,
     )
-    db = psnr(img_tpu, img_gold)
+    db = psnr(img_jax, img_gold)
     assert db >= 40.0, f"seed {seed}: PSNR {db:.2f} dB < 40"

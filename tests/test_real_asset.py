@@ -1,7 +1,7 @@
 """End-to-end GLB asset test: loader -> build -> pipeline -> f64 oracle.
 
-Round-1 gap (VERDICT "what's missing" #3): the loader was only exercised on a
-2-triangle synthetic glTF; real Khronos assets use interleaved/normalized
+Without it the loader would only be exercised on a 2-triangle synthetic
+glTF; real Khronos assets use interleaved/normalized
 accessors, multi-primitive meshes, nested node TRS, shared meshes, embedded
 textures. tests/glb_fixture.py builds a GLB using all of those WITH ground
 truth, so this file checks (a) the loader's numeric output exactly and

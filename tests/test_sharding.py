@@ -29,7 +29,7 @@ from arctic_tpu.parallel import sharding
 
 def _tiny_scene():
     """A floor quad + two standing triangles: enough to cover slab
-    boundaries and cast a shadow, small enough for pallas interpret mode."""
+    boundaries and cast a shadow, small enough for the Pallas interpreter."""
     positions = [
         # floor (y = 0)
         [-6, 0, -6], [6, 0, -6], [6, 0, 6], [-6, 0, 6],
@@ -71,7 +71,7 @@ def _camera_params(aspect):
 
 
 def test_sharded_tiled_raster_matches_single_chip():
-    """The binned Pallas path (interpret mode on CPU) under shard_map."""
+    """The tiled raster path (the Pallas interpreter on CPU) under shard_map."""
     W, H = 128, 64
     config = RenderConfig(width=W, height=H, shadow_size=64, force_bruteforce=False)
     bufs = _tiny_scene()
@@ -79,10 +79,8 @@ def test_sharded_tiled_raster_matches_single_chip():
     single = np.asarray(pipeline.make_renderer(config)(bufs, p, default_settings()))
     assert (np.asarray(single)[..., 0] != single[0, 0, 0]).any(), "scene invisible"
     mesh = sharding.make_mesh(2)
-    # check_vma=False: the pallas interpreter can't type mixed-vma internals
-    # (jax 0.9); exact equality below is the correctness check.
     multi = np.asarray(
-        sharding.make_sharded_renderer(config, mesh, check_vma=False)(
+        sharding.make_sharded_renderer(config, mesh)(
             bufs, p, default_settings()
         )
     )
@@ -90,17 +88,17 @@ def test_sharded_tiled_raster_matches_single_chip():
 
 
 def test_sharded_bench_shaped_geometry_matches_single_chip():
-    """Bench-shaped slab geometry on the FUSED path (VERDICT r4 #5): cam
-    tile rows (3) and shadow tile rows (5) both non-divisible by the 8
-    devices — slabs round up, devices 3..7 get EMPTY camera windows, the
-    frame and shadow map are cropped — with the sun-frustum cull rect and
-    LUT y-band (config defaults) applied per-slab via tile_row0."""
+    """Bench-shaped slab geometry on the FUSED path: cam
+    tile rows (5) and shadow tile rows (10) both non-divisible by the 8
+    devices — slabs round up, devices 5..7 get EMPTY camera windows, the
+    frame and shadow map are cropped — with the sun-frustum cull rect (a
+    config default) applied per-slab via tile_row0."""
     assert len(jax.devices()) == 8, "conftest should provide 8 virtual devices"
     W, H, S = 192, 136, 320
     config = RenderConfig(width=W, height=H, shadow_size=S)
-    assert config.sun_frustum_cull and config.lut_y_skip  # the bench path
-    assert (-(-H // config.tile_h)) % 8 != 0  # 3 cam tile rows
-    assert (-(-S // config.shadow_tile)) % 8 != 0  # 5 shadow tile rows
+    assert config.sun_frustum_cull  # the bench path
+    assert (-(-H // config.tile_h)) % 8 != 0  # 5 cam tile rows
+    assert (-(-S // config.shadow_tile)) % 8 != 0  # 10 shadow tile rows
     meshes, objects, materials, env = cornell_like_scene()
     bufs = build_buffers(meshes, objects, materials, env, tri_bucket=256)
     p = _camera_params(W / H)
@@ -115,7 +113,7 @@ def test_sharded_bench_shaped_geometry_matches_single_chip():
     assert (single[..., 0] != single[0, 0, 0]).any(), "scene invisible"
     mesh = sharding.make_mesh(8)
     multi = np.asarray(
-        sharding.make_sharded_renderer(config, mesh, check_vma=False)(
+        sharding.make_sharded_renderer(config, mesh)(
             bufs, p, default_settings()
         )
     )

@@ -1,14 +1,13 @@
 """Search texture material groupings OFFLINE against dumped row masks.
 
-Input: /tmp/texrows.npz from tools/probe_tex_rowmasks.py — per-128-px-row
-24-bit material masks over fly-through frames. Evaluates grouping
-strategies for the grouped-tile gather (RenderConfig.tex_group_caps) with
-the measured cost model (docs/FLOORS.md):
+Input: an .npz with ``masks``, the (F, R) per-128-px-row material bitmasks
+of pipeline.measure_tex_row_masks over fly-through frames. Evaluates
+grouping strategies for the grouped-tile gather (RenderConfig.tex_group_caps)
+with io.texplan's relative cost model:
 
-    cost = 128 px/row * (uniform_rows * 1.81 ns + fallback_rows * 9.90 ns)
+    cost = 128 px/row * (uniform_rows * W_GROUP + fallback_rows * W_FALLBACK)
 
-(+ ~1 ms of fixed compaction/reassembly overhead, identical across
-strategies). Strategies:
+Strategies:
 
   contiguous   materials grouped by id (what group_tile_atlas does today)
   greedy       seed groups with the heaviest co-occurrence edges, grow by
@@ -16,19 +15,20 @@ strategies). Strategies:
   anneal       simulated annealing over assignments (swap moves), objective
                = total mixed rows over the dump
   pairs        additionally route rows that mix exactly TWO groups ADJACENT
-               in layout order through the concatenated pair slice (valid
-               when 2 * slice_bytes <= the fast tier) — annealing then also
-               optimizes the group ORDER
+               in layout order through the concatenated pair slice —
+               annealing then also optimizes the group ORDER
 
-Usage: python tools/plan_tex_groups.py [texrows.npz] [--mats-per-group N]
+Usage: python tools/plan_tex_groups.py texrows.npz [--mats-per-group N]
 """
 
+import os
 import sys
 
 import numpy as np
 
-NS_FAST = 1.81
-NS_SLOW = 9.90
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+
+from arctic_tpu.io.texplan import W_FALLBACK, W_GROUP  # noqa: E402
 M = 24
 
 
@@ -68,7 +68,7 @@ def pair_routable(masks, group_of, order):
     return (cnt == 2) & (pmax - pmin == 1)
 
 
-def cost_ms(masks, group_of, rows_per_frame, order=None, pairs=False):
+def modeled_cost(masks, group_of, rows_per_frame, order=None, pairs=False):
     uni, mix, mixed_mask = mixing(masks, group_of)
     n_frames = masks.shape[0]
     pairr = 0
@@ -80,7 +80,7 @@ def cost_ms(masks, group_of, rows_per_frame, order=None, pairs=False):
     per_frame_rows = masks[0].size
     uni_f = uni / n_frames
     mix_f = mix / n_frames
-    return (uni_f * 128 * NS_FAST + mix_f * 128 * NS_SLOW) / 1e6, mix / (
+    return (uni_f * 128 * W_GROUP + mix_f * 128 * W_FALLBACK), mix / (
         n_frames * 1.0
     )
 
@@ -174,7 +174,7 @@ def order_anneal(masks, group_of, iters=4000, seed=1):
 
 
 def main():
-    path = sys.argv[1] if len(sys.argv) > 1 else "/tmp/texrows.npz"
+    path = sys.argv[1]
     k = 3
     for i, a in enumerate(sys.argv):
         if a == "--mats-per-group" and i + 1 < len(sys.argv):
@@ -185,18 +185,18 @@ def main():
     g_n = -(-M // k)
     contig = np.minimum(np.arange(M) // k, g_n - 1)
     for name, asg in (("contiguous", contig), ("greedy", greedy(masks, k))):
-        ms, mixf = cost_ms(masks, asg, masks.shape[1])
-        print(f"{name:11s}: tap-gather ~{ms:6.2f} ms, mixed {mixf:8.0f} rows/frame")
+        ms, mixf = modeled_cost(masks, asg, masks.shape[1])
+        print(f"{name:11s}: modeled cost {ms:10.0f}, mixed {mixf:8.0f} rows/frame")
 
     ann = anneal(masks, greedy(masks, k), k)
-    ms, mixf = cost_ms(masks, ann, masks.shape[1])
-    print(f"{'anneal':11s}: tap-gather ~{ms:6.2f} ms, mixed {mixf:8.0f} rows/frame")
+    ms, mixf = modeled_cost(masks, ann, masks.shape[1])
+    print(f"{'anneal':11s}: modeled cost {ms:10.0f}, mixed {mixf:8.0f} rows/frame")
     print("anneal groups:", [list(np.where(ann == g)[0]) for g in range(g_n)])
 
     order = order_anneal(masks, ann)
-    ms, mixf = cost_ms(masks, ann, masks.shape[1], order=order, pairs=True)
+    ms, mixf = modeled_cost(masks, ann, masks.shape[1], order=order, pairs=True)
     print(
-        f"{'+pairs':11s}: tap-gather ~{ms:6.2f} ms, mixed {mixf:8.0f} rows/frame "
+        f"{'+pairs':11s}: modeled cost {ms:10.0f}, mixed {mixf:8.0f} rows/frame "
         f"(order {list(order)})"
     )
 

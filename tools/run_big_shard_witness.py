@@ -1,11 +1,11 @@
-"""Bench-shaped multichip witness at FULL slab geometry (VERDICT r4 #5).
+"""Bench-shaped multi-device witness at FULL slab geometry.
 
 Renders 960x540 with a 2000^2 shadow map — the largest CPU-compilable
 config with 1080p-class tile geometry (9 camera tile rows NOT divisible by
 the 8 devices, so slabs round up with partial/empty windows; sun-frustum
-cull + LUT y-band on) — on an 8-device virtual CPU mesh AND single-device.
+cull on) — on an 8-device virtual CPU mesh AND single-device.
 
-Asserted guarantees (measured 2026-08-20, recorded in docs/ROADMAP.md):
+Asserted guarantees:
   1. the all-gathered SHADOW MAP is bit-exact vs single-device (0.0 diff —
      in-rect tiles get identical pair lists and the kernel math is
      identical per tile, so slab composition is exact);
@@ -21,7 +21,7 @@ Asserted guarantees (measured 2026-08-20, recorded in docs/ROADMAP.md):
      flipping decision). The small dryrun shapes (128x96, 192x136) hold
      <= 1 LSB and keep the strict check (__graft_entry__.py).
 
-~15 min of interpret-mode compile; run on demand.
+Many minutes of CPU compile and interpreted kernels; run on demand.
 
 Usage: python tools/run_big_shard_witness.py
 """
@@ -60,11 +60,11 @@ def main():
         f"tile rows {n_sh_rows}, {n_devices} devices "
         f"(divisible: cam={n_cam_rows % n_devices == 0}, "
         f"shadow={n_sh_rows % n_devices == 0}), "
-        f"cull={config.sun_frustum_cull} y_skip={config.lut_y_skip}"
+        f"cull={config.sun_frustum_cull}"
     )
     mesh = sharding.make_mesh(n_devices)
     t0 = time.time()
-    render = sharding.make_sharded_renderer_stats(config, mesh, check_vma=False)
+    render = sharding.make_sharded_renderer_stats(config, mesh)
     img, rstats = render(buffers, params, settings)
     img = np.asarray(img)
     print(f"sharded frame done ({time.time() - t0:.0f} s)")
@@ -108,9 +108,7 @@ def main():
         cam_pv = params.camera.proj_view()
         wc = pipeline.world_corners(geom)
         tri_valid = jnp.arange(geom.capacity) < geom.num_tris
-        rect, _ = pipeline.sun_cull_rect(
-            wc, tri_valid, cam_pv, sun_pv, config, with_y_band=True
-        )
+        rect = pipeline.sun_cull_rect(wc, tri_valid, cam_pv, sun_pv, config)
         zb, _, _ = pipeline.shadow_pass(
             geom, sun_pv, config,
             sun_clip=pipeline.corners_clip(wc, sun_pv), cull_rect=rect,
@@ -128,13 +126,11 @@ def main():
             pipeline.corners_clip(wc, sun_pv), tri_valid
         )
         sh_setup = raster.setup_screen_triangles(sh_clipped, s, s, cull="front")
-        sh_rect, _ = pipeline.sun_cull_rect(
-            wc, tri_valid, cam_pv, sun_pv, config, with_y_band=True
-        )
-        sh_zt, _, _, _, _ = raster_tiles.bin_and_rasterize(
-            sh_setup, s, config, sh_tiles_x, sh_rows_dev, sth, st,
-            tile_row0=d * sh_rows_dev, vma=(sharding.AXIS,), kind="shadow",
-            depth_only=True, rect=sh_rect,
+        sh_rect = pipeline.sun_cull_rect(wc, tri_valid, cam_pv, sun_pv, config)
+        sh_zt, _, _ = raster_tiles.bin_and_rasterize(
+            sh_setup, config, sh_tiles_x, sh_rows_dev, sth, st,
+            tile_row0=d * sh_rows_dev, kind="shadow", depth_only=True,
+            rect=sh_rect,
         )
         slab = raster_tiles._untile(sh_zt, sh_rows_dev, sh_tiles_x, sth, st)
         return jax.lax.all_gather(
